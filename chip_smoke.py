@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (denovo_kmer_tpu_torch) on one CUDA card and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout, on a machine with an NVIDIA card (sm_90a, nvcc under
+/usr/local/cuda or $CUDA_HOME). It exits non-zero, printing no result, without a card or
+without the package beside it. Phases, each printed as one JSON line:
+
+1. build    — compile every CUDA kernel of the main path from denovo_kmer_tpu_torch/csrc.
+2. kernels  — each kernel against its plain PyTorch version on the card, at the main-path
+              batch shape (B=16384, max_read_len=160) over k in {15,21,31,32,33,63},
+              canonical on/off, vwords and length-shipped feeds: valid masks identical and
+              keys bit-exact where valid (tolerance 0: every quantity is an integer). Times
+              by CUDA events (median of 20 after warm-up) beside the memory bound.
+3. parity   — run_trio on a small synthetic trio on the card and on the CPU, at k=31 (the
+              fused call) and k=32 (the call_from_score fallback), one batch a window so
+              the parents merge into populated tables and the child takes the compacting,
+              capacity-growing flush_score: identical reports.
+4. main     — run_trio on a 4 Mbp genome with 3 x 262,144 reads of 151 bp, written as BAMs,
+              at k=31, batch_reads=16384, accum_batches=16, table_capacity=2^23, under a
+              torch.profiler trace of the device (busy time by kernel, idle share); the
+              parent tables and the candidates are held against a numpy reference computed
+              on the host from the same reads, and every planted de novo SNV must lie under
+              a candidate. The kernels' launch counts come from this run alone.
+
+Then a ``kernels`` line (one entry per kernel), the card's name and power limit as
+nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
+"""
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+INT_OPS_PER_S = 67e12  # the data sheet's non-tensor (float32) peak, used for integer ALU ops
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def power_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one ``fn()`` call: the stream is first held by a sleep kernel
+    so every launch is queued before the timed ones start, and the host's launch overhead
+    does not show up as idle device time between events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+# ---------------------------------------------------------------------------------------
+# phase 2: extraction kernel against its plain version
+# ---------------------------------------------------------------------------------------
+
+def make_batch(rng, B, max_len, n_rate):
+    from denovo_kmer_tpu_torch.ops.pack import _pack_codes, padded_length
+
+    Lp = padded_length(max_len)
+    codes = rng.integers(0, 4, size=(B, Lp), dtype=np.uint8)
+    lengths = rng.integers(max_len // 3, max_len + 1, size=B).astype(np.int32)
+    lengths[: B // 4] = 151  # the main path's read length
+    lengths[-64:] = 0  # padding rows of a partial batch
+    pos = np.arange(Lp)[None, :]
+    valid = (pos < lengths[:, None]) & (rng.random((B, Lp)) >= n_rate)
+    codes = np.where(valid, codes, 0).astype(np.uint8)
+    return _pack_codes(codes, valid, lengths, B - 64)
+
+
+def extraction_bytes_ops(B, Lw, k, max_len, canonical, with_vwords):
+    W = -(-2 * k // 32)
+    P = max_len - k + 1
+    nbytes = B * Lw * 4 + (B * (Lw // 2) * 4 if with_vwords else B * 4) + B * P * (4 * W + 1)
+    # per window: two-word assembly of forward and reverse complement (~10 ops a word),
+    # alignment shifts, the canonical compare and select, the validity test
+    per_window = 10 * 2 * W + 3 * W + (3 * W if canonical else 0) + (
+        6 * -(-k // 32) if with_vwords else 1)
+    return nbytes, B * P * per_window
+
+
+def phase_kernels(rng):
+    from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+    from denovo_kmer_tpu_torch.ops.extract import append_plain, extract_append
+    from denovo_kmer_tpu_torch.ops.stream import empty_accumulator
+
+    dev = torch.device("cuda")
+    B, max_len = 16384, 160
+    batches = {"vwords": make_batch(rng, B, max_len, 0.01),
+               "lengths": make_batch(rng, B, max_len, 0.0)}
+    assert not batches["vwords"].prefix_valid and batches["lengths"].prefix_valid
+    cases, worst = [], 0
+    for feed, p in batches.items():
+        words = as_int32_tensor(p.words).to(dev)
+        vwords = as_int32_tensor(p.vwords).to(dev) if feed == "vwords" else None
+        lengths = as_int32_tensor(p.length).to(dev) if feed == "lengths" else None
+        for k in (15, 21, 31, 32, 33, 63):
+            for canonical in (True, False):
+                W, P = -(-2 * k // 32), max_len - k + 1
+                acc_k = empty_accumulator(B * P, W, dev)
+                acc_p = empty_accumulator(B * P, W, dev)
+                extract_append(acc_k, words, vwords, lengths, k, max_len, canonical)
+                append_plain(acc_p, words, vwords, lengths, k, max_len, canonical)
+                torch.cuda.synchronize()
+                if not torch.equal(acc_k.valid, acc_p.valid):
+                    raise AssertionError(f"valid masks differ: k={k} {feed} "
+                                         f"canonical={canonical}")
+                v = acc_k.valid
+                diff = ((acc_k.kmers.to(torch.int64) & 0xFFFFFFFF)
+                        - (acc_p.kmers.to(torch.int64) & 0xFFFFFFFF)).abs()[v]
+                err = int(diff.max()) if diff.numel() else 0
+                if err != 0:
+                    raise AssertionError(f"keys differ where valid: k={k} {feed} "
+                                         f"canonical={canonical} max_abs_err={err}")
+                n_valid = int(v.sum())
+                if n_valid == 0:
+                    raise AssertionError(f"no valid window: k={k} {feed}")
+                worst = max(worst, err)
+                ms = cuda_ms(lambda: extract_append(acc_k, words, vwords, lengths, k,
+                                                    max_len, canonical))
+                plain_ms = cuda_ms(lambda: append_plain(acc_p, words, vwords, lengths, k,
+                                                        max_len, canonical))
+                nbytes, ops = extraction_bytes_ops(B, p.words.shape[1], k, max_len,
+                                                   canonical, feed == "vwords")
+                bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+                cases.append(dict(k=k, canonical=canonical, feed=feed, windows=B * P,
+                                  valid=n_valid, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=max(bytes_ms, ops_ms),
+                                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                                  bytes=nbytes, ops=ops))
+    emit({"phase": "kernels", "kernel": "extract_kmers", "B": B, "max_read_len": max_len,
+          "cases": cases})
+    return cases, worst
+
+
+# ---------------------------------------------------------------------------------------
+# phase 3: run_trio on the card equals run_trio on the CPU
+# ---------------------------------------------------------------------------------------
+
+def phase_parity(work):
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.io.synth import TrioSpec, make_trio, write_trio_bams
+    from denovo_kmer_tpu_torch.pipeline import run_trio
+
+    trio = make_trio(TrioSpec(genome_len=20000, seed=0))
+    paths = write_trio_bams(trio, os.path.join(work, "small"))
+    out = {}
+    for k in (31, 32):
+        # one batch a window: every sample spans several windows (2,400 reads a sample)
+        cfg = EngineConfig(k=k, max_read_len=128, batch_reads=1024, accum_batches=1,
+                           table_capacity=1 << 16)
+        if not all(len(r) > cfg.batch_reads * cfg.accum_batches for r in trio.reads.values()):
+            raise AssertionError("the parity trio must span several flush windows a sample")
+        t0 = time.perf_counter()
+        gpu = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, device="cuda")
+        t1 = time.perf_counter()
+        cpu = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, device="cpu")
+        t2 = time.perf_counter()
+        if (gpu.report, gpu.tables_n, gpu.candidates) != (cpu.report, cpu.tables_n,
+                                                          cpu.candidates):
+            raise AssertionError(f"run_trio on cuda != run_trio on cpu at k={k}")
+        if not gpu.candidates:
+            raise AssertionError(f"no candidates at k={k}")
+        out[f"k{k}"] = dict(candidates=len(gpu.candidates), tables_n=gpu.tables_n,
+                            cuda_s=t1 - t0, cpu_s=t2 - t1)
+    emit({"phase": "parity", "batch_reads": 1024, "accum_batches": 1,
+          "reads": {s: len(r) for s, r in trio.reads.items()}, **out})
+
+
+# ---------------------------------------------------------------------------------------
+# phase 4: the main path at full width
+# ---------------------------------------------------------------------------------------
+
+K = 31
+READ_LEN = 151
+N_READS = 262_144
+GENOME_LEN = 4_000_000
+N_SNVS = 50
+MAIN_CFG = dict(k=K, max_read_len=160, batch_reads=16384, accum_batches=16,
+                table_capacity=1 << 23)
+
+
+def sample_reads(rng, genome, n_rate):
+    """n reads of READ_LEN from random positions, half reverse-complemented; codes with 4 = N."""
+    pos = rng.integers(0, len(genome) - READ_LEN + 1, size=N_READS)
+    codes = genome[pos[:, None] + np.arange(READ_LEN)[None, :]]
+    rev = rng.random(N_READS) < 0.5
+    codes[rev] = 3 - codes[rev, ::-1]
+    if n_rate:
+        codes[rng.random(codes.shape) < n_rate] = 4
+    return pos, rev, codes
+
+
+def write_bam(path, name, codes, pos, rev, genome_len):
+    from denovo_kmer_tpu_torch.io.bam import BamRecord, BamWriter
+
+    text = np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
+    L = codes.shape[1]
+    with open(path, "wb") as f, BamWriter(f, references=[("chrS", genome_len)],
+                                          level=1) as w:
+        for i in range(codes.shape[0]):
+            w.write(BamRecord(name=f"{name}_r{i}", flag=0x10 if rev[i] else 0, refid=0,
+                              pos=int(pos[i]), mapq=60, cigar=((L, 0),),
+                              seq=text[i * L:(i + 1) * L]))
+
+
+def reference_counts(codes):
+    """Host numpy reference: unique canonical k-mer values of every valid window, counts."""
+    n, L = codes.shape
+    P = L - K + 1
+    c = np.minimum(codes, 3).astype(np.uint64)
+    fwd = np.zeros((n, P), np.uint64)
+    rc = np.zeros((n, P), np.uint64)
+    for j in range(K):
+        fwd = (fwd << np.uint64(2)) | c[:, j:j + P]
+        rc |= (np.uint64(3) - c[:, j:j + P]) << np.uint64(2 * j)
+    bad = np.concatenate([np.zeros((n, 1), np.int32),
+                          np.cumsum(codes == 4, axis=1, dtype=np.int32)], axis=1)
+    valid = (bad[:, K:K + P] - bad[:, :P]) == 0
+    vals = np.minimum(fwd, rc)[valid]
+    del fwd, rc
+    keys, counts = np.unique(vals, return_counts=True)
+    return keys, counts, int(valid.sum())
+
+
+def canonical_of(window_codes):
+    v = 0
+    r = 0
+    for j, c in enumerate(window_codes):
+        v = (v << 2) | int(c)
+        r |= (3 - int(c)) << (2 * j)
+    return min(v, r)
+
+
+def check_table(table, ref_keys, ref_counts, n_windows, capacity, name):
+    from denovo_kmer_tpu_torch.ops.table import table_to_numpy
+
+    keys, counts, n = table_to_numpy(table)
+    if n > capacity:
+        raise AssertionError(f"{name}: n={n} > capacity {capacity}")
+    vals = (keys[:n, 0].astype(np.uint64) << np.uint64(32)) | keys[:n, 1].astype(np.uint64)
+    if n > 1 and not (vals[1:] > vals[:-1]).all():
+        raise AssertionError(f"{name}: keys not strictly ascending")
+    total = int(counts[:n].astype(np.int64).sum())
+    if total != n_windows:
+        raise AssertionError(f"{name}: sum(counts)={total} != {n_windows} valid windows")
+    if not (np.array_equal(vals, ref_keys) and np.array_equal(counts[:n], ref_counts)):
+        raise AssertionError(f"{name}: table differs from the numpy reference")
+    return n
+
+
+def phase_main(rng, work):
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.ops.extract import extract_append
+    from denovo_kmer_tpu_torch.pipeline import build_sample_table, run_trio
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    t0 = time.perf_counter()
+    genome = rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)
+    child_genome = genome.copy()
+    snvs = np.sort(rng.choice(np.arange(1000, GENOME_LEN - 1000), N_SNVS, replace=False))
+    child_genome[snvs] = (child_genome[snvs] + rng.integers(1, 4, N_SNVS)) % 4
+    samples = {"mom": sample_reads(rng, genome, 0.0),
+               "dad": sample_reads(rng, genome, 0.0),
+               "child": sample_reads(rng, child_genome, 0.001)}
+    t1 = time.perf_counter()
+    paths = {}
+    for name, (pos, rev, codes) in samples.items():
+        paths[name] = os.path.join(work, f"{name}.bam")
+        write_bam(paths[name], name, codes, pos, rev, GENOME_LEN)
+    t2 = time.perf_counter()
+
+    cfg = EngineConfig(**MAIN_CFG)
+    m = Metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        extract_append.launches = 0  # count the main path's launches alone
+        t3 = time.perf_counter()
+        res = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, m, device="cuda")
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        launches = {"extract_kmers": extract_append.launches}
+    peak = torch.cuda.max_memory_allocated()
+    device = device_time(prof, os.path.join(work, "main_trace.json"), t4 - t3)
+    batches = m.counters["batches"]
+    if batches != 3 * -(-N_READS // cfg.batch_reads) or launches["extract_kmers"] != batches:
+        raise AssertionError(f"extract_kmers launched {launches['extract_kmers']} times "
+                             f"for {batches} batches")
+
+    # checks against the host reference: parent tables, candidates, planted SNVs
+    t5 = time.perf_counter()
+    ref = {name: reference_counts(codes) for name, (_, _, codes) in samples.items()}
+    for name in ("mom", "dad"):
+        table = build_sample_table(paths[name], cfg, device="cuda")
+        n = check_table(table, ref[name][0], ref[name][1], ref[name][2],
+                        cfg.table_capacity, name)
+        if n != res.tables_n[name]:
+            raise AssertionError(f"{name}: rebuilt n={n} != run_trio's {res.tables_n[name]}")
+    ck, cc = ref["child"][:2]
+    cand = (cc >= cfg.min_child_count) & ~np.isin(ck, ref["mom"][0]) & ~np.isin(ck, ref["dad"][0])
+    want = [(int(v), int(c), 0, 0) for v, c in zip(ck[cand], cc[cand])]
+    if res.candidates != want:
+        raise AssertionError(f"candidates differ from the numpy reference "
+                             f"({len(res.candidates)} vs {len(want)})")
+    if res.tables_n["child"] != len(ck):
+        raise AssertionError(f"child uniques {res.tables_n['child']} != {len(ck)}")
+    found = {v for v, _, _, _ in res.candidates}
+    missed = [int(s) for s in snvs
+              if not any(canonical_of(child_genome[st:st + K]) in found
+                         for st in range(s - K + 1, s + 1))]
+    if missed:
+        raise AssertionError(f"planted SNVs under no candidate: {missed}")
+    t6 = time.perf_counter()
+
+    s = m.seconds
+    child_kmers = N_READS * cfg.windows_per_read
+    emit({"phase": "main", "config": MAIN_CFG,
+          "reads_per_sample": N_READS, "read_len": READ_LEN, "genome_len": GENOME_LEN,
+          "data_s": t1 - t0, "bam_write_s": t2 - t1, "run_trio_s": t4 - t3,
+          "build_mom_s": s["build_mom"], "build_dad_s": s["build_dad"],
+          "build_child_s": s["build_child"], "trio_call_s": s["trio_call"],
+          "feed_wait_s": s.get("feed_wait", 0.0),
+          "child_kmers_per_s": child_kmers / s["build_child"],
+          "candidates": len(res.candidates), "tables_n": res.tables_n,
+          "planted_snvs": N_SNVS, "snvs_recovered": N_SNVS - len(missed),
+          "batches": batches, "launches": launches, "peak_device_bytes": peak,
+          "device": device, "check_s": t6 - t5})
+    return launches
+
+
+def device_time(prof, trace_path, wall_s):
+    """Device activity of a profiled run, from its Chrome trace: busy seconds (the union of
+    every kernel, copy and memset interval), summed seconds by kind and for the costliest
+    kernels, and the idle share of ``wall_s``. None where the trace holds no device event
+    (a profiler that cannot trace the card): the smoke's checks do not depend on it."""
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans, kinds, kernels = [], {"extract_kernel": 0.0, "other_kernels": 0.0, "copies": 0.0}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset") or "dur" not in e:
+            continue
+        ts, dur = float(e["ts"]) * 1e-6, float(e["dur"]) * 1e-6
+        spans.append((ts, ts + dur))
+        name = e.get("name", "")
+        if cat != "kernel":
+            kinds["copies"] += dur
+        elif "extract_kmers" in name:
+            kinds["extract_kernel"] += dur
+        else:
+            kinds["other_kernels"] += dur
+        if cat == "kernel":
+            kernels[name[:100]] = kernels.get(name[:100], 0.0) + dur
+    if not spans:
+        return None
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"events": len(spans), "busy_s": busy, "idle_share": 1.0 - busy / wall_s,
+            **{f"{kind}_s": s for kind, s in kinds.items()},
+            "top_kernels_s": dict(top)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    from denovo_kmer_tpu_torch.utils.cuda_build import load
+
+    t_start = time.perf_counter()
+    emit({"phase": "start", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0), "power": power_line()})
+
+    t0 = time.perf_counter()
+    load("extract_kmers")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": ["extract_kmers"]})
+
+    rng = np.random.default_rng(args.seed)
+    cases, worst = phase_kernels(rng)
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
+    try:
+        phase_parity(work)
+        launches = phase_main(rng, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    main_case = next(c for c in cases
+                     if c["k"] == K and c["canonical"] and c["feed"] == "lengths")
+    vw_case = next(c for c in cases
+                   if c["k"] == K and c["canonical"] and c["feed"] == "vwords")
+    emit({"kernels": [{
+        "name": "extract_kmers", "route": "cuda",
+        "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",
+        "replaces": "denovo_kmer_tpu/ops/extract_pallas.py:42",
+        "launches": launches["extract_kmers"],
+        "max_abs_err": worst, "max_abs_diff": worst,
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": None,
+        "ms_vwords_feed": vw_case["ms"], "plain_ms_vwords_feed": vw_case["plain_ms"],
+        "bound_ms_vwords_feed": vw_case["bound_ms"],
+        "shape": "B=16384 max_read_len=160 k=31 canonical"}]})
+    emit({"phase": "end", "seconds": time.perf_counter() - t_start})
+    print(power_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

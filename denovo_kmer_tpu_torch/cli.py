@@ -1,0 +1,252 @@
+"""Command-line interface of the PyTorch/CUDA port. Usage:
+
+    python -m denovo_kmer_tpu_torch call --mom mom.bam --dad dad.bam --child child.bam \
+        -k 31 -o candidates.tsv [--device cuda|cpu]
+
+Subcommands (the same flags and output as ``python -m denovo_kmer_tpu``):
+    call        full trio workflow (index parents, score child, report)
+    synth-trio  generate a deterministic synthetic trio (test/bench fixture)
+
+Flags of paths not ported yet (multipass, spill, mesh, regions, evidence, sites, length
+buckets, profiling) exit non-zero and name ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from denovo_kmer_tpu_torch.config import DEFAULT_FILTER_MASK, EngineConfig
+
+_NOT_YET = "not yet ported (ROADMAP.md)"
+
+
+def _int_maybe_hex(s: str) -> int:
+    return int(s, 0)
+
+
+def _mesh_shape(s: str):
+    parts = s.lower().split("x")
+    try:
+        if len(parts) != 2:
+            raise ValueError
+        r, t = int(parts[0]), int(parts[1])
+        if r < 1 or t < 1:
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"mesh must be READSxTABLE with positive ints (e.g. 4x2), got {s!r}"
+        ) from None
+    return (r, t)
+
+
+def _add_engine_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group("semantics (SPEC_SEMANTICS.md)")
+    g.add_argument("-k", "--kmer-size", type=int, default=31)
+    g.add_argument("--no-canonical", action="store_true",
+                   help="count forward-strand k-mers only")
+    g.add_argument("--filter-flag-mask", type=_int_maybe_hex, default=DEFAULT_FILTER_MASK,
+                   help="skip records with (flag & mask) != 0 (default 0x%(default)x)")
+    g.add_argument("--min-base-quality", type=int, default=0)
+    g.add_argument("--tau-parent", type=int, default=0,
+                   help="max parental count for a candidate")
+    g.add_argument("--min-child-count", type=int, default=2)
+    e = p.add_argument_group("engine sizing")
+    e.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the engine runs (default: the CUDA card; fails without one)")
+    e.add_argument("--batch-reads", type=int, default=4096)
+    e.add_argument("--max-read-len", type=int, default=160)
+    e.add_argument("--table-capacity", type=int, default=1 << 20)
+    e.add_argument("--mesh", type=_mesh_shape, default=(1, 1),
+                   help=f"mesh shape READSxTABLE (multi-device: {_NOT_YET})")
+    e.add_argument("--read-len-buckets", default=None,
+                   help=f"comma list of ascending padded read widths ({_NOT_YET})")
+    e.add_argument("--accum-batches", default="32",
+                   help="batches staged per accumulation window before a flush. Integer, "
+                        "or 'auto' to size from the device's memory (CLI default 32; the "
+                        "library EngineConfig default is a conservative 8)")
+    e.add_argument("--region", default=None, help=f"restrict BAM inputs ({_NOT_YET})")
+    e.add_argument("--regions-bed", default=None, help=f"BED regions ({_NOT_YET})")
+    e.add_argument("--passes", type=int, default=1,
+                   help=f"prefix-partitioned multi-pass build ({_NOT_YET})")
+    e.add_argument("--spill", default=None, metavar="DIR", help=f"host spill ({_NOT_YET})")
+    e.add_argument("--spill-rows", type=int, default=None, metavar="N",
+                   help=f"device spill store ({_NOT_YET})")
+    e.add_argument("--reference", default=None,
+                   help="reference FASTA (for reference-based CRAM inputs)")
+    e.add_argument("--extractor", choices=("fast", "fast_t", "pallas"), default="fast",
+                   help="extraction layout of the JAX package; every value runs the same "
+                        "CUDA kernel here")
+    e.add_argument("--output-format", choices=("tsv", "fasta"), default="tsv",
+                   help="candidate report format (tsv is the parity artifact)")
+    e.add_argument("--ingest-threads", type=int, default=None,
+                   help=f"decode worker threads of the native feeder ({_NOT_YET})")
+    e.add_argument("--json-metrics", action="store_true")
+    e.add_argument("--profile-dir", type=str, default=None,
+                   help=f"write a profiler trace here ({_NOT_YET})")
+
+
+def _reject_unported(args) -> None:
+    """Loud exit for flags whose paths are not ported yet: silently ignoring one would
+    leave a user believing it took effect."""
+    unported = [
+        ("--passes", getattr(args, "passes", 1) > 1),
+        ("--mesh", tuple(getattr(args, "mesh", (1, 1))) != (1, 1)),
+        ("--spill", getattr(args, "spill", None) is not None),
+        ("--spill-rows", getattr(args, "spill_rows", None) is not None),
+        ("--region", getattr(args, "region", None) is not None),
+        ("--regions-bed", getattr(args, "regions_bed", None) is not None),
+        ("--read-len-buckets", getattr(args, "read_len_buckets", None) is not None),
+        ("--ingest-threads", getattr(args, "ingest_threads", None) is not None),
+        ("--profile-dir", getattr(args, "profile_dir", None) is not None),
+        ("--evidence-out", getattr(args, "evidence_out", None) is not None),
+        ("--sites-out", getattr(args, "sites_out", None) is not None),
+    ]
+    for flag, given in unported:
+        if given:
+            raise SystemExit(f"{flag}: {_NOT_YET}")
+
+
+def _accum_kwargs(args) -> dict:
+    """--accum-batches: integer, or 'auto' = size the accumulation window from the
+    device's memory: staging costs batch_reads * windows_per_read * (4*words+1) B per
+    batch and the flush sort needs a few times that, so auto budgets ~15% of memory."""
+    raw = args.accum_batches
+    if str(raw) != "auto":
+        return {"accum_batches": int(raw)}
+    import torch
+
+    if args.device == "cuda" and torch.cuda.is_available():
+        mem = torch.cuda.get_device_properties(0).total_memory
+    else:
+        mem = 4 << 30
+    P = args.max_read_len - args.kmer_size + 1
+    words = -(-2 * args.kmer_size // 32)
+    per_batch = args.batch_reads * P * (4 * words + 1)
+    n = min(max(int(mem * 0.15 / max(per_batch, 1)), 8), 128)
+    print(f"accum auto: {n} batches/window "
+          f"({n * per_batch / 1e9:.2f} GB staging of {mem / 1e9:.0f} GB)", file=sys.stderr)
+    return {"accum_batches": n}
+
+
+def _cfg_from_args(args) -> EngineConfig:
+    return EngineConfig(
+        k=args.kmer_size,
+        canonical=not args.no_canonical,
+        filter_flag_mask=args.filter_flag_mask,
+        min_base_quality=args.min_base_quality,
+        tau_parent=args.tau_parent,
+        min_child_count=args.min_child_count,
+        batch_reads=args.batch_reads,
+        max_read_len=args.max_read_len,
+        table_capacity=args.table_capacity,
+        mesh_shape=tuple(args.mesh),
+        reference_fasta=args.reference,
+        extractor=args.extractor,
+        json_metrics=args.json_metrics,
+        **_accum_kwargs(args),
+    )
+
+
+def cmd_call(args) -> int:
+    from denovo_kmer_tpu_torch.pipeline import run_trio
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    _reject_unported(args)
+    cfg = _cfg_from_args(args)
+    metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
+    result = run_trio(args.mom, args.dad, args.child, cfg, metrics, device=args.device)
+
+    if args.output_format == "fasta":
+        from denovo_kmer_tpu_torch.oracle.scalar import format_fasta
+
+        out_text = format_fasta(result.candidates, cfg.k)
+    else:
+        out_text = result.report
+    if args.output == "-":
+        sys.stdout.write(out_text)
+    else:
+        with open(args.output, "w") as f:
+            f.write(out_text)
+    print(metrics.summary(), file=sys.stderr)
+    print(
+        f"candidates: {len(result.candidates)}  "
+        f"(uniques mom={result.tables_n['mom']} dad={result.tables_n['dad']} "
+        f"child={result.tables_n['child']})",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_synth_trio(args) -> int:
+    from denovo_kmer_tpu_torch.io.synth import (
+        TrioSpec,
+        make_trio,
+        write_trio_bams,
+        write_truth_vcf,
+    )
+
+    spec = TrioSpec(
+        genome_len=args.genome_len,
+        read_len=args.read_len,
+        coverage=args.coverage,
+        n_denovo_snvs=args.denovo,
+        seed=args.seed,
+    )
+    trio = make_trio(spec)
+    paths = write_trio_bams(trio, args.outdir)
+    paths["truth_vcf"] = write_truth_vcf(trio, f"{args.outdir}/truth.vcf")
+    ref_fa = f"{args.outdir}/ref.fa"
+    with open(ref_fa, "w") as f:  # reference-based CRAM workflows need it
+        f.write(f">{spec.ref_name}\n")
+        for i in range(0, len(trio.reference), 70):
+            f.write(trio.reference[i : i + 70] + "\n")
+    paths["reference"] = ref_fa
+    meta = {
+        "paths": paths,
+        "denovo_positions": trio.denovo_positions,
+        "spec": vars(spec),
+    }
+    with open(f"{args.outdir}/trio.json", "w") as f:
+        json.dump(meta, f, indent=2)
+    print(json.dumps(paths))
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="denovo_kmer_tpu_torch", description=__doc__)
+    p.add_argument("--version", action="version", version="denovo_kmer_tpu_torch 0.1.0")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pc = sub.add_parser("call", help="trio de novo candidate calling")
+    pc.add_argument("--mom", required=True, help="mother reads (BAM/FASTQ/FASTA)")
+    pc.add_argument("--dad", required=True, help="father reads (BAM/FASTQ/FASTA)")
+    pc.add_argument("--child", required=True)
+    pc.add_argument("-o", "--output", default="-")
+    pc.add_argument("--evidence-out", default=None, help=f"supporting reads ({_NOT_YET})")
+    pc.add_argument("--sites-out", default=None, help=f"per-site TSV ({_NOT_YET})")
+    _add_engine_args(pc)
+    pc.set_defaults(fn=cmd_call)
+
+    ps = sub.add_parser("synth-trio", help="generate a synthetic trio fixture")
+    ps.add_argument("outdir")
+    ps.add_argument("--genome-len", type=int, default=20000)
+    ps.add_argument("--read-len", type=int, default=100)
+    ps.add_argument("--coverage", type=float, default=12.0)
+    ps.add_argument("--denovo", type=int, default=5)
+    ps.add_argument("--seed", type=int, default=0)
+    ps.set_defaults(fn=cmd_synth_trio)
+
+    args = p.parse_args(argv)
+    try:
+        return args.fn(args)
+    except BrokenPipeError:
+        # `... | head` closes stdout mid-stream; exit quietly like samtools
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

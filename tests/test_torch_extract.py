@@ -1,0 +1,152 @@
+"""The port's plain extraction (denovo_kmer_tpu_torch/ops/extract.py) against the JAX
+package: ``extract_canonical_kmers_fast`` and the Pallas kernel in interpret mode, on random
+reads with Ns and mixed lengths. Valid masks are compared exactly, keys where valid. The
+CUDA kernel of the same module is held against this plain version on the card by
+chip_smoke.py (there is no card here)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from denovo_kmer_tpu.config import EngineConfig as JaxConfig
+from denovo_kmer_tpu.ops.extract_fast import extract_canonical_kmers_fast
+from denovo_kmer_tpu.ops.extract_pallas import extract_canonical_kmers_pallas
+from denovo_kmer_tpu.ops.pack import pack_seqs as jax_pack_seqs
+from denovo_kmer_tpu_torch.config import EngineConfig
+from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+from denovo_kmer_tpu_torch.ops.extract import (
+    _tile_reads,
+    extract_append,
+    extract_canonical_kmers,
+    vwords_from_lengths,
+)
+from denovo_kmer_tpu_torch.ops.pack import pack_seqs
+from denovo_kmer_tpu_torch.ops.stream import empty_accumulator
+
+torch.set_num_threads(1)
+
+MATRIX = [(15, 48), (21, 64), (31, 96), (33, 96), (41, 128), (63, 128)]
+
+
+def _rand_reads(rng, n, max_len, n_rate=0.01):
+    out = []
+    for _ in range(n):
+        L = int(rng.integers(max_len // 3, max_len + 1))
+        bases = rng.choice(list("ACGT"), size=L)
+        bases[rng.random(L) < n_rate] = "N"
+        out.append("".join(bases))
+    return out
+
+
+def _packed(k, max_len, n_rate=0.01):
+    rng = np.random.default_rng(k * 1000 + max_len)
+    cfg = EngineConfig(k=k, max_read_len=max_len, batch_reads=64, table_capacity=1 << 10)
+    return pack_seqs(_rand_reads(rng, 64, max_len, n_rate), cfg, batch_size=64)
+
+
+def _assert_same(got_k, got_v, want_k, want_v):
+    want_v = np.asarray(want_v)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    np.testing.assert_array_equal(
+        got_k.numpy().astype(np.uint32)[want_v], np.asarray(want_k)[want_v])
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("k,max_len", MATRIX)
+def test_plain_matches_jax_fast(k, max_len, canonical):
+    p = _packed(k, max_len)
+    want_k, want_v = extract_canonical_kmers_fast(
+        jnp.asarray(p.words), jnp.asarray(p.vwords), k, max_len, canonical=canonical)
+    got_k, got_v = extract_canonical_kmers(
+        as_int32_tensor(p.words), as_int32_tensor(p.vwords), k, max_len, canonical)
+    assert got_k.shape == (64, max_len - k + 1, -(-2 * k // 32))
+    _assert_same(got_k, got_v, want_k, want_v)
+    assert want_v.any()
+
+
+@pytest.mark.parametrize("k,max_len", MATRIX)
+def test_plain_matches_jax_pallas_interpret(k, max_len):
+    p = _packed(k, max_len)
+    want_k, want_v = extract_canonical_kmers_pallas(
+        jnp.asarray(p.words), jnp.asarray(p.vwords), k, max_len, interpret=True,
+        block_reads=16)
+    got_k, got_v = extract_canonical_kmers(
+        as_int32_tensor(p.words), as_int32_tensor(p.vwords), k, max_len, True)
+    _assert_same(got_k, got_v, want_k, want_v)
+
+
+@pytest.mark.parametrize("max_len", [48, 64, 100, 160])
+def test_vwords_from_lengths_matches_jax_pack(max_len):
+    """The validity words the JAX package's ``_pack_codes`` builds for clean reads."""
+    rng = np.random.default_rng(max_len)
+    cfg = JaxConfig(k=15, max_read_len=max_len, batch_reads=64, table_capacity=1 << 10)
+    p = jax_pack_seqs(_rand_reads(rng, 60, max_len, 0.0), cfg, batch_size=64)
+    assert p.prefix_valid
+    got = vwords_from_lengths(torch.from_numpy(p.length), p.padded_len)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), p.vwords)
+
+
+def test_pack_matches_jax_pack():
+    rng = np.random.default_rng(4)
+    seqs = _rand_reads(rng, 50, 151)
+    quals = [tuple(int(q) for q in rng.integers(0, 41, len(s))) for s in seqs]
+    kw = dict(k=31, max_read_len=160, batch_reads=64, min_base_quality=20)
+    got = pack_seqs(seqs, EngineConfig(**kw), quals, batch_size=64)
+    want = jax_pack_seqs(seqs, JaxConfig(**kw), quals, batch_size=64)
+    for name in ("words", "vwords", "length"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert (got.n_reads, got.prefix_valid) == (want.n_reads, want.prefix_valid)
+
+
+@pytest.mark.parametrize("k,max_len", [(21, 64), (31, 160), (33, 96), (63, 128)])
+def test_extract_append_lengths_equals_vwords(k, max_len):
+    """A length-shipped batch stages exactly what the same batch with vwords stages."""
+    p = _packed(k, max_len, n_rate=0.0)
+    assert p.prefix_valid
+    words = as_int32_tensor(p.words)
+    W, P = -(-2 * k // 32), max_len - k + 1
+    a = extract_append(empty_accumulator(3 * 64 * P, W), words, None,
+                       torch.from_numpy(p.length), k, max_len)
+    b = extract_append(empty_accumulator(3 * 64 * P, W), words, as_int32_tensor(p.vwords),
+                       None, k, max_len)
+    assert a.fill == b.fill == 64 * P
+    np.testing.assert_array_equal(a.valid.numpy(), b.valid.numpy())
+    v = b.valid.numpy()
+    np.testing.assert_array_equal(a.kmers.numpy()[v], b.kmers.numpy()[v])
+    # rows land at fill + b*P + p: a second append continues after the first
+    c = extract_append(b, words, as_int32_tensor(p.vwords), None, k, max_len)
+    assert c.fill == 2 * 64 * P
+    np.testing.assert_array_equal(c.valid.numpy()[64 * P: 2 * 64 * P], v[: 64 * P])
+
+
+def test_extract_append_checks_its_inputs():
+    p = _packed(31, 96, n_rate=0.0)
+    words = as_int32_tensor(p.words)
+    acc = empty_accumulator(64 * 66, 2)
+    with pytest.raises(TypeError):
+        extract_append(acc, words.to(torch.int64), None, torch.from_numpy(p.length), 31, 96)
+    with pytest.raises(ValueError):  # staging has room for one batch only
+        extract_append(extract_append(acc, words, None, torch.from_numpy(p.length), 31, 96),
+                       words, None, torch.from_numpy(p.length), 31, 96)
+    with pytest.raises(ValueError):  # k=33 needs 3-word keys
+        extract_append(acc, words, None, torch.from_numpy(p.length), 33, 96)
+    with pytest.raises(ValueError):
+        extract_append(acc, words, None, None, 31, 96)
+    with pytest.raises(ValueError):
+        extract_append(acc, words[:, :4].contiguous(), None, torch.from_numpy(p.length),
+                       31, 96)
+
+
+def test_kernel_tile_fits_shared_memory():
+    """The kernel's read tile: ~2048 windows a block, never past 48 KiB of staged words."""
+    # main path: B=16384, Lp=160 (Lw=10), k=31 (W=2), P=130 -> 16 reads of 132 B
+    assert _tile_reads(16384, 10, 31, 130, with_vwords=False) == 16
+    assert _tile_reads(16384, 10, 31, 130, with_vwords=True) == 16
+    assert _tile_reads(5, 10, 31, 130, with_vwords=True) == 5
+    # long reads: the tile shrinks to what 48 KiB holds (per read 4*(2*(Lw+W+1) + Lw/2+2))
+    Lw = 256
+    per_read = 4 * (2 * (Lw + 4 + 1) + Lw // 2 + 2)
+    assert _tile_reads(64, Lw, 63, 64, with_vwords=True) == 48 * 1024 // per_read == 18
+    with pytest.raises(ValueError):
+        _tile_reads(64, 8192, 63, 16 * 8192 - 62, with_vwords=False)
