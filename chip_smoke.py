@@ -7,28 +7,44 @@ Run from the root of a checkout, on a machine with an NVIDIA card (sm_90a, nvcc 
 /usr/local/cuda or $CUDA_HOME). It exits non-zero, printing no result, without a card or
 without the package beside it. Phases, each printed as one JSON line:
 
-1. build    — compile every CUDA kernel of the main path from denovo_kmer_tpu_torch/csrc.
-2. kernels  — each kernel against its plain PyTorch version on the card, at the main-path
-              batch shape (B=16384, max_read_len=160) over k in {15,21,31,32,33,63},
-              canonical on/off, vwords and length-shipped feeds: valid masks identical and
-              keys bit-exact where valid (tolerance 0: every quantity is an integer). Times
-              by CUDA events (median of 20 after warm-up) beside the memory bound.
-3. parity   — run_trio on a small synthetic trio on the card and on the CPU, at k=31 (the
+1. build    — compile every CUDA kernel of the main paths from denovo_kmer_tpu_torch/csrc,
+              one nvcc a source, all started together.
+2. kernels  — each kernel against its plain PyTorch version on the card (tolerance 0: every
+              quantity is an integer), timed by CUDA events (median after warm-up) beside
+              its bound and, where one PyTorch call computes the same function, that call:
+              extraction at the main-path batch (B=16384, max_read_len=160) over k in
+              {15,21,31,32,33,63}, canonical on/off, vwords and length-shipped feeds, and
+              with the multipass filter (k=31, n_passes=3, pass_id 0 and 2): valid masks
+              identical, keys bit-exact where valid; the partition at the spill window
+              (N=34,078,720 rows of 2 words, 5 buckets through the spill's entry, 8 through
+              the JAX-contract entry) and at benchmarks/micro_radix_partition.py's shape
+              (N=2^24, C=4, 16 buckets): rows and counts bit-exact. Then the library time of
+              the unported block sort's function (benchmarks/micro_pallas_sort.py).
+3. parity   — on a small synthetic trio, on the card and on the CPU: run_trio at k=31 (the
               fused call) and k=32 (the call_from_score fallback), one batch a window so
               the parents merge into populated tables and the child takes the compacting,
-              capacity-growing flush_score: identical reports.
+              capacity-growing flush_score; run_trio_spill with a device store (3 passes)
+              and run_trio_multipass (2 passes): identical reports.
 4. main     — run_trio on a 4 Mbp genome with 3 x 262,144 reads of 151 bp, written as BAMs,
               at k=31, batch_reads=16384, accum_batches=16, table_capacity=2^23, under a
               torch.profiler trace of the device (busy time by kernel, idle share); the
               parent tables and the candidates are held against a numpy reference computed
               on the host from the same reads, and every planted de novo SNV must lie under
-              a candidate. The kernels' launch counts come from this run alone.
+              a candidate.
+5. multipass — the same BAMs and config: run_trio_spill with 4 passes into a device store
+              of 12,000,000 rows a pass; run_trio_spill with 4 passes into a host spill
+              directory, then again (it must decode nothing); run_trio_multipass with 2
+              passes. Each report must equal phase 4's byte for byte, and the partition
+              kernel must launch once a staging window (3 a decoding spill run).
 
-Then a ``kernels`` line (one entry per kernel), the card's name and power limit as
-nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
+Each path of phases 4 and 5 runs with every kernel's launch count set to 0 just before it
+and read just after; the counts come from those runs alone. Then a ``kernels`` line (one
+entry per kernel), the card's name and power limit as nvidia-smi gives them, and last
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -42,6 +58,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+KERNELS = ["extract_kmers", "radix_partition"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT_OPS_PER_S = 67e12  # the data sheet's non-tensor (float32) peak, used for integer ALU ops
 
@@ -154,9 +171,135 @@ def phase_kernels(rng):
                                   bound_ms=max(bytes_ms, ops_ms),
                                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                                   bytes=nbytes, ops=ops))
+        for pass_id in (0, 2):  # the multipass filter: k=31, 3 passes
+            k, W, P = 31, 2, max_len - 31 + 1
+            acc_k = empty_accumulator(B * P, W, dev)
+            acc_p = empty_accumulator(B * P, W, dev)
+            extract_append(acc_k, words, vwords, lengths, k, max_len, True, 3, pass_id)
+            append_plain(acc_p, words, vwords, lengths, k, max_len, True, 3, pass_id)
+            torch.cuda.synchronize()
+            v = acc_k.valid
+            if not torch.equal(v, acc_p.valid) or not torch.equal(acc_k.kmers[v],
+                                                                  acc_p.kmers[v]):
+                raise AssertionError(f"pass filter differs: {feed} pass_id={pass_id}")
+            n_valid = int(v.sum())
+            if n_valid == 0:
+                raise AssertionError(f"no window kept: {feed} pass_id={pass_id}")
+            ms = cuda_ms(lambda: extract_append(acc_k, words, vwords, lengths, k, max_len,
+                                                True, 3, pass_id))
+            plain_ms = cuda_ms(lambda: append_plain(acc_p, words, vwords, lengths, k,
+                                                    max_len, True, 3, pass_id))
+            cases.append(dict(k=k, canonical=True, feed=feed, n_passes=3, pass_id=pass_id,
+                              windows=B * P, valid=n_valid, max_abs_err=0, ms=ms,
+                              plain_ms=plain_ms))
     emit({"phase": "kernels", "kernel": "extract_kmers", "B": B, "max_read_len": max_len,
           "cases": cases})
     return cases, worst
+
+
+def partition_library(data, ids, n_buckets, block_lanes):
+    """One PyTorch call for the same function: a stable sort by (block, bucket), then the
+    row gather (the yardstick; the port never calls it)."""
+    N = ids.shape[0]
+    block = torch.arange(N, device=ids.device) // block_lanes
+    order = torch.sort(block * n_buckets + ids, stable=True).indices
+    return data[:, order]
+
+
+def phase_partition():
+    from denovo_kmer_tpu_torch.ops.partition import (
+        partition_blocks_plain,
+        partition_kernel,
+        partition_spill_blocks,
+        radix_partition_blocks,
+    )
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.ops.spill import SPILL_BLOCK_LANES, _window_ids
+    from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator
+    from denovo_kmer_tpu_torch.pipeline import _staging_slots
+
+    S = _staging_slots(EngineConfig(**MAIN_CFG))  # phase 5's staging window, 34,078,720
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rand_words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    cases = []
+    # the spill window: staging rows (S, 2), their pass ids over 4 passes with 15% of the
+    # rows invalid (bucket 4), passed as the (2, S) view the spill passes
+    rows = rand_words(S, 2)
+    valid = torch.rand(S, device=dev, generator=gen) >= 0.15
+    ids5 = _window_ids(KmerAccumulator(rows, valid, S), 4)
+    ids8 = torch.randint(0, 8, (S,), dtype=torch.int32, device=dev, generator=gen)
+    micro = rand_words(4, 1 << 24)
+    ids16 = torch.randint(0, 16, (1 << 24,), dtype=torch.int32, device=dev, generator=gen)
+    shapes = [
+        ("spill window, spill entry", partition_spill_blocks, rows.T, ids5, 5),
+        ("spill window, JAX-contract entry", radix_partition_blocks, rows.T, ids8, 8),
+        ("micro_radix_partition", radix_partition_blocks, micro, ids16, 16),
+    ]
+    for name, entry, data, ids, nb in shapes:
+        C, N = data.shape
+        out, counts = entry(data, ids, nb, SPILL_BLOCK_LANES)
+        want, want_counts = partition_blocks_plain(data, ids, nb, SPILL_BLOCK_LANES)
+        torch.cuda.synchronize()
+        err = max(int(((out.to(torch.int64) & 0xFFFFFFFF)
+                       - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max()),
+                  int((counts - want_counts).abs().max()))
+        if err != 0 or int(counts.sum()) != N:
+            raise AssertionError(f"partition differs from its plain version: {name} "
+                                 f"max_abs_err={err}")
+        ms = cuda_ms(lambda: entry(data, ids, nb, SPILL_BLOCK_LANES), reps=10)
+        plain_ms = cuda_ms(lambda: partition_blocks_plain(data, ids, nb, SPILL_BLOCK_LANES),
+                           reps=5)
+        library_ms = cuda_ms(lambda: partition_library(data, ids, nb, SPILL_BLOCK_LANES),
+                             reps=5)
+        nbytes = N * (8 * C + 4)  # rows read and written once, ids read once
+        ops = N * 24  # ~24 integer ops a row: match, popc, ranks, addresses
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+        cases.append(dict(shape=name, N=N, C=C, n_buckets=nb, block_lanes=SPILL_BLOCK_LANES,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=max(bytes_ms, ops_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                          bytes=nbytes, ops=ops))
+        del out, counts, want, want_counts
+    del rows, valid, ids5, ids8, micro, ids16
+    partition_kernel.launches = 0  # the comparisons above do not count
+    emit({"phase": "kernels", "kernel": "radix_partition", "cases": cases})
+    return cases
+
+
+def phase_block_sort_library():
+    """The library time of benchmarks/micro_pallas_sort.py's function (a batched sort of
+    (2048, 128) u32 key blocks with a u32 payload, 2^22 x 128 of each), whose TPU kernel is
+    not ported yet: one torch.sort along the block's rows plus the payload gather."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    keys = torch.randint(0, 2**31, (1 << 22, 128), dtype=torch.int32, device=dev,
+                         generator=gen)
+    pays = torch.randint(0, 2**31, (1 << 22, 128), dtype=torch.int32, device=dev,
+                         generator=gen)
+
+    def library():
+        s = torch.sort(keys.view(-1, 2048, 128), dim=1)
+        return s.values, torch.take_along_dim(pays.view(-1, 2048, 128), s.indices, dim=1)
+
+    sk, sp = library()
+    torch.cuda.synchronize()
+    if not bool((sk[:, 1:] >= sk[:, :-1]).all()):
+        raise AssertionError("block sort yardstick does not sort")
+    del sk, sp
+    ms = cuda_ms(library, reps=5, warmup=1)
+    nbytes = 4 * keys.numel() * 4  # two arrays read once and written once
+    out = {"phase": "block_sort_library", "shape": [1 << 22, 128], "block_rows": 2048,
+           "library_ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": nbytes}
+    del keys, pays
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------------------
@@ -166,7 +309,7 @@ def phase_kernels(rng):
 def phase_parity(work):
     from denovo_kmer_tpu_torch.config import EngineConfig
     from denovo_kmer_tpu_torch.io.synth import TrioSpec, make_trio, write_trio_bams
-    from denovo_kmer_tpu_torch.pipeline import run_trio
+    from denovo_kmer_tpu_torch.pipeline import run_trio, run_trio_multipass, run_trio_spill
 
     trio = make_trio(TrioSpec(genome_len=20000, seed=0))
     paths = write_trio_bams(trio, os.path.join(work, "small"))
@@ -189,6 +332,26 @@ def phase_parity(work):
             raise AssertionError(f"no candidates at k={k}")
         out[f"k{k}"] = dict(candidates=len(gpu.candidates), tables_n=gpu.tables_n,
                             cuda_s=t1 - t0, cpu_s=t2 - t1)
+        if k != 31:
+            continue
+        # the multipass paths at k=31: a device-store spill of 3 passes (each window of
+        # 100,352 rows is three full partition blocks and a ragged one) and 2 re-decode
+        # passes; both must give run_trio's report
+        call = (paths["mom"], paths["dad"], paths["child"], cfg)
+        for name, run in (
+                ("spill3", lambda d: run_trio_spill(*call, 3, device_store_rows=1 << 17,
+                                                    device=d)),
+                ("multipass2", lambda d: run_trio_multipass(*call, 2, device=d))):
+            t0 = time.perf_counter()
+            gpu_mp = run("cuda")
+            t1 = time.perf_counter()
+            cpu_mp = run("cpu")
+            t2 = time.perf_counter()
+            if (gpu_mp.report, gpu_mp.tables_n) != (cpu_mp.report, cpu_mp.tables_n):
+                raise AssertionError(f"{name} on cuda != {name} on cpu")
+            if gpu_mp.report != gpu.report:
+                raise AssertionError(f"{name} report != run_trio report")
+            out[f"k31_{name}"] = dict(tables_n=gpu_mp.tables_n, cuda_s=t1 - t0, cpu_s=t2 - t1)
     emit({"phase": "parity", "batch_reads": 1024, "accum_batches": 1,
           "reads": {s: len(r) for s, r in trio.reads.items()}, **out})
 
@@ -277,7 +440,6 @@ def check_table(table, ref_keys, ref_counts, n_windows, capacity, name):
 
 def phase_main(rng, work):
     from denovo_kmer_tpu_torch.config import EngineConfig
-    from denovo_kmer_tpu_torch.ops.extract import extract_append
     from denovo_kmer_tpu_torch.pipeline import build_sample_table, run_trio
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
@@ -301,18 +463,20 @@ def phase_main(rng, work):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        extract_append.launches = 0  # count the main path's launches alone
+        reset_launches()  # count the main path's launches alone
         t3 = time.perf_counter()
         res = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, m, device="cuda")
         torch.cuda.synchronize()
         t4 = time.perf_counter()
-        launches = {"extract_kmers": extract_append.launches}
+        launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     device = device_time(prof, os.path.join(work, "main_trace.json"), t4 - t3)
     batches = m.counters["batches"]
     if batches != 3 * -(-N_READS // cfg.batch_reads) or launches["extract_kmers"] != batches:
         raise AssertionError(f"extract_kmers launched {launches['extract_kmers']} times "
                              f"for {batches} batches")
+    if launches["radix_partition"] != 0:
+        raise AssertionError("run_trio launched the partition kernel")
 
     # checks against the host reference: parent tables, candidates, planted SNVs
     t5 = time.perf_counter()
@@ -352,7 +516,88 @@ def phase_main(rng, work):
           "planted_snvs": N_SNVS, "snvs_recovered": N_SNVS - len(missed),
           "batches": batches, "launches": launches, "peak_device_bytes": peak,
           "device": device, "check_s": t6 - t5})
-    return launches
+    return paths, res.report, batches
+
+
+def reset_launches():
+    from denovo_kmer_tpu_torch.ops.extract import extract_append
+    from denovo_kmer_tpu_torch.ops.partition import partition_kernel
+
+    extract_append.launches = 0
+    partition_kernel.launches = 0
+
+
+def read_launches():
+    from denovo_kmer_tpu_torch.ops.extract import extract_append
+    from denovo_kmer_tpu_torch.ops.partition import partition_kernel
+
+    return {"extract_kmers": extract_append.launches,
+            "radix_partition": partition_kernel.launches}
+
+
+# ---------------------------------------------------------------------------------------
+# phase 5: the multipass paths at full width, on phase 4's BAMs
+# ---------------------------------------------------------------------------------------
+
+SPILL_PASSES = 4
+STORE_ROWS = 12_000_000
+
+
+def phase_multipass(work, paths, report, batches):
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.pipeline import run_trio_multipass, run_trio_spill
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    cfg = EngineConfig(**MAIN_CFG)
+    trio = (paths["mom"], paths["dad"], paths["child"], cfg)
+    spill_dir = os.path.join(work, "spill")
+    windows = 3 * -(-batches // 3 // cfg.accum_batches)  # staging windows of the 3 samples
+    runs = [
+        # (name, call, expected launches: extract_kmers, radix_partition)
+        ("spill_store", lambda m: run_trio_spill(*trio, SPILL_PASSES, metrics=m,
+                                                 device_store_rows=STORE_ROWS,
+                                                 device="cuda"), (batches, windows)),
+        ("spill_host", lambda m: run_trio_spill(*trio, SPILL_PASSES, spill_dir=spill_dir,
+                                                metrics=m, device="cuda"),
+         (batches, windows)),
+        ("spill_host_resumed", lambda m: run_trio_spill(*trio, SPILL_PASSES,
+                                                        spill_dir=spill_dir, metrics=m,
+                                                        device="cuda"), (0, 0)),
+        ("multipass", lambda m: run_trio_multipass(*trio, 2, m, device="cuda"),
+         (2 * batches, 0)),
+    ]
+    out = {}
+    for name, run, want in runs:
+        m = Metrics()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the device-store run, the slice's main path, is traced like phase 4's run_trio
+        activities = [torch.profiler.ProfilerActivity.CUDA] if name == "spill_store" else []
+        with contextlib.ExitStack() as stack:
+            prof = stack.enter_context(torch.profiler.profile(activities=activities)) \
+                if activities else None
+            reset_launches()
+            t0 = time.perf_counter()
+            res = run(m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        device = (device_time(prof, os.path.join(work, f"{name}_trace.json"), wall)
+                  if prof is not None else None)
+        if res.report != report:
+            raise AssertionError(f"{name}: report differs from run_trio's")
+        if (launches["extract_kmers"], launches["radix_partition"]) != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        ingested = m.counters.get("reads_ingested", 0)
+        if name == "spill_host_resumed" and ingested != 0:
+            raise AssertionError(f"the resumed spill decoded {ingested} reads")
+        out[name] = {"wall_s": wall, "launches": launches, "reads_ingested": ingested,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(), "device": device,
+                     **{f"{k}_s": v for k, v in sorted(m.seconds.items())}}
+    emit({"phase": "multipass", "config": MAIN_CFG, "passes": SPILL_PASSES,
+          "device_store_rows": STORE_ROWS, "multipass_passes": 2,
+          "candidates": report.count("\n") - 1, **out})
+    return out
 
 
 def device_time(prof, trace_path, wall_s):
@@ -363,7 +608,9 @@ def device_time(prof, trace_path, wall_s):
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f).get("traceEvents", [])
-    spans, kinds, kernels = [], {"extract_kernel": 0.0, "other_kernels": 0.0, "copies": 0.0}, {}
+    spans, kernels = [], {}
+    kinds = {"extract_kernel": 0.0, "partition_kernel": 0.0, "other_kernels": 0.0,
+             "copies": 0.0}
     for e in events:
         cat = e.get("cat", "")
         if cat not in ("kernel", "gpu_memcpy", "gpu_memset") or "dur" not in e:
@@ -375,6 +622,8 @@ def device_time(prof, trace_path, wall_s):
             kinds["copies"] += dur
         elif "extract_kmers" in name:
             kinds["extract_kernel"] += dur
+        elif "radix_partition" in name:
+            kinds["partition_kernel"] += dur
         else:
             kinds["other_kernels"] += dur
         if cat == "kernel":
@@ -400,29 +649,34 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this needs a CUDA card",
               file=sys.stderr)
         return 1
-    from denovo_kmer_tpu_torch.utils.cuda_build import load
+    from denovo_kmer_tpu_torch.utils.cuda_build import load_all
 
     t_start = time.perf_counter()
     emit({"phase": "start", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "power": power_line()})
 
     t0 = time.perf_counter()
-    load("extract_kmers")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": ["extract_kmers"]})
+    load_all(KERNELS)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": KERNELS})
 
     rng = np.random.default_rng(args.seed)
     cases, worst = phase_kernels(rng)
+    part_cases = phase_partition()
+    block_sort = phase_block_sort_library()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
     try:
         phase_parity(work)
-        launches = phase_main(rng, work)
+        paths, report, batches = phase_main(rng, work)
+        multipass = phase_multipass(work, paths, report, batches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    main_case = next(c for c in cases
-                     if c["k"] == K and c["canonical"] and c["feed"] == "lengths")
-    vw_case = next(c for c in cases
-                   if c["k"] == K and c["canonical"] and c["feed"] == "vwords")
+    main_case = next(c for c in cases if c["k"] == K and c["canonical"]
+                     and c["feed"] == "lengths" and "n_passes" not in c)
+    vw_case = next(c for c in cases if c["k"] == K and c["canonical"]
+                   and c["feed"] == "vwords" and "n_passes" not in c)
+    spill_case = part_cases[0]
+    launches = multipass["spill_store"]["launches"]
     emit({"kernels": [{
         "name": "extract_kmers", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",
@@ -434,7 +688,24 @@ def main() -> int:
         "library_ms": None,
         "ms_vwords_feed": vw_case["ms"], "plain_ms_vwords_feed": vw_case["plain_ms"],
         "bound_ms_vwords_feed": vw_case["bound_ms"],
-        "shape": "B=16384 max_read_len=160 k=31 canonical"}]})
+        "launches_by_path": {name: r["launches"]["extract_kmers"]
+                             for name, r in multipass.items()},
+        "shape": "B=16384 max_read_len=160 k=31 canonical"}, {
+        "name": "radix_partition", "route": "cuda",
+        "source": "denovo_kmer_tpu_torch/csrc/radix_partition.cu",
+        "replaces": "denovo_kmer_tpu/ops/partition_pallas.py:125",
+        "launches": launches["radix_partition"],
+        "max_abs_err": max(c["max_abs_err"] for c in part_cases),
+        "ms": spill_case["ms"], "plain_ms": spill_case["plain_ms"],
+        "bound_ms": spill_case["bound_ms"], "bound_by": spill_case["bound_by"],
+        "library_ms": spill_case["library_ms"],
+        "launches_by_path": {name: r["launches"]["radix_partition"]
+                             for name, r in multipass.items()},
+        "shape": f"N={spill_case['N']} C=2 n_buckets=5 block_lanes=32768 (spill window)"}],
+        "unported": [{"name": "pallas_block_sort",
+                      "replaces": "benchmarks/micro_pallas_sort.py:79",
+                      "library_ms": block_sort["library_ms"],
+                      "bound_ms": block_sort["bound_ms"], "bound_by": "bytes"}]})
     emit({"phase": "end", "seconds": time.perf_counter() - t_start})
     print(power_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ the caller passes ``device="cpu"``.
 
 - ``io/``       host feeder: BGZF/BAM/FASTA decode, synthetic trios, device placement
 - ``ops/``      device compute: extraction (``csrc/extract_kmers.cu``), tables, scoring,
-  the fused trio call
+  the fused trio call, the multipass spill (partition kernel ``csrc/radix_partition.cu``)
+- ``parallel/`` the hash router (pass and shard buckets)
 - ``oracle/``   scalar ground truth for SPEC_SEMANTICS.md
 - ``pipeline``  end-to-end orchestration; ``cli`` the user entry point
 """

@@ -1,14 +1,17 @@
 """Command-line interface of the PyTorch/CUDA port. Usage:
 
     python -m denovo_kmer_tpu_torch call --mom mom.bam --dad dad.bam --child child.bam \
-        -k 31 -o candidates.tsv [--device cuda|cpu]
+        -k 31 -o candidates.tsv [--device cuda|cpu] [--passes N [--spill DIR | --spill-rows N]]
 
 Subcommands (the same flags and output as ``python -m denovo_kmer_tpu``):
-    call        full trio workflow (index parents, score child, report)
+    call        full trio workflow (index parents, score child, report). ``--passes N``
+                splits the key space into N hash passes: alone it re-decodes the reads
+                every pass; with ``--spill DIR`` (host files, resumable) or ``--spill-rows
+                N`` (a device store of N rows a pass) it decodes once and spills
     synth-trio  generate a deterministic synthetic trio (test/bench fixture)
 
-Flags of paths not ported yet (multipass, spill, mesh, regions, evidence, sites, length
-buckets, profiling) exit non-zero and name ROADMAP.md.
+Flags of paths not ported yet (mesh, regions, evidence, sites, length buckets, profiling)
+exit non-zero and name ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -70,10 +73,15 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
     e.add_argument("--region", default=None, help=f"restrict BAM inputs ({_NOT_YET})")
     e.add_argument("--regions-bed", default=None, help=f"BED regions ({_NOT_YET})")
     e.add_argument("--passes", type=int, default=1,
-                   help=f"prefix-partitioned multi-pass build ({_NOT_YET})")
-    e.add_argument("--spill", default=None, metavar="DIR", help=f"host spill ({_NOT_YET})")
+                   help="hash-pass partitioned multi-pass build: each pass's table holds "
+                        "~1/N of the uniques (re-decodes the reads every pass unless "
+                        "--spill/--spill-rows is given)")
+    e.add_argument("--spill", default=None, metavar="DIR",
+                   help="with --passes: decode once and spill per-pass k-mer rows to host "
+                        "files in DIR (resumable: a finished sample is never re-decoded)")
     e.add_argument("--spill-rows", type=int, default=None, metavar="N",
-                   help=f"device spill store ({_NOT_YET})")
+                   help="with --passes: decode once and spill per-pass k-mer rows to a "
+                        "device store of N rows a pass")
     e.add_argument("--reference", default=None,
                    help="reference FASTA (for reference-based CRAM inputs)")
     e.add_argument("--extractor", choices=("fast", "fast_t", "pallas"), default="fast",
@@ -92,10 +100,7 @@ def _reject_unported(args) -> None:
     """Loud exit for flags whose paths are not ported yet: silently ignoring one would
     leave a user believing it took effect."""
     unported = [
-        ("--passes", getattr(args, "passes", 1) > 1),
         ("--mesh", tuple(getattr(args, "mesh", (1, 1))) != (1, 1)),
-        ("--spill", getattr(args, "spill", None) is not None),
-        ("--spill-rows", getattr(args, "spill_rows", None) is not None),
         ("--region", getattr(args, "region", None) is not None),
         ("--regions-bed", getattr(args, "regions_bed", None) is not None),
         ("--read-len-buckets", getattr(args, "read_len_buckets", None) is not None),
@@ -150,14 +155,35 @@ def _cfg_from_args(args) -> EngineConfig:
     )
 
 
+def _check_multipass_flags(args) -> None:
+    """The JAX CLI's rules: a spill IS the multipass partition, so it needs --passes >= 2;
+    the host spill and the device store are exclusive; a store holds at least one row."""
+    if args.spill_rows is not None and args.spill_rows < 1:
+        raise SystemExit(f"--spill-rows must be >= 1 (got {args.spill_rows})")
+    if (args.spill is not None or args.spill_rows is not None) and args.passes <= 1:
+        raise SystemExit("--spill/--spill-rows require --passes N (N >= 2): "
+                         "the spill IS the multipass partition")
+    if args.spill is not None and args.spill_rows is not None:
+        raise SystemExit("--spill DIR and --spill-rows are exclusive")
+
+
 def cmd_call(args) -> int:
-    from denovo_kmer_tpu_torch.pipeline import run_trio
+    from denovo_kmer_tpu_torch.pipeline import run_trio, run_trio_multipass, run_trio_spill
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
     _reject_unported(args)
+    _check_multipass_flags(args)
     cfg = _cfg_from_args(args)
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
-    result = run_trio(args.mom, args.dad, args.child, cfg, metrics, device=args.device)
+    trio = (args.mom, args.dad, args.child, cfg)
+    if args.passes > 1 and (args.spill is not None or args.spill_rows is not None):
+        result = run_trio_spill(*trio, args.passes, spill_dir=args.spill,
+                                device_store_rows=args.spill_rows, metrics=metrics,
+                                device=args.device)
+    elif args.passes > 1:
+        result = run_trio_multipass(*trio, args.passes, metrics, device=args.device)
+    else:
+        result = run_trio(*trio, metrics, device=args.device)
 
     if args.output_format == "fasta":
         from denovo_kmer_tpu_torch.oracle.scalar import format_fasta

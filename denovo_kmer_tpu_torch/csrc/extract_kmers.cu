@@ -16,6 +16,10 @@
 //   - canonical: lexicographic minimum over the W words, ties to forward.
 //   - valid: all k validity bits of the window set (vwords feed), or p + k <= length (the
 //     length-shipped feed; exactly what ops/extract_fast.py:vwords_from_lengths implies).
+//   - pass filter (n_passes > 1): valid also requires router.pass_of(key, n_passes) ==
+//     pass_id, the FNV-1a + murmur3 hash with basis 0x9E3779B9 over the stored key words,
+//     computed in registers, as the JAX multipass step fuses it (pipeline.py:213-217).
+//     With n_passes == 1 the hash is not computed.
 //
 // Design: one block stages a tile of reads (their mw/cw words, and validity words) in
 // shared memory; one thread computes one (read, position) window and writes its W words
@@ -36,6 +40,18 @@
 
 namespace {
 
+template <int W>
+__device__ __forceinline__ uint32_t pass_hash(const uint32_t (&key)[W]) {
+  uint32_t h = 0x9E3779B9u;
+#pragma unroll
+  for (int w = 0; w < W; ++w) h = (h ^ key[w]) * 0x01000193u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
 __device__ __forceinline__ uint32_t reverse_2bit_fields(uint32_t x) {
   x = ((x & 0x33333333u) << 2) | ((x >> 2) & 0x33333333u);
   x = ((x & 0x0F0F0F0Fu) << 4) | ((x >> 4) & 0x0F0F0F0Fu);
@@ -48,7 +64,7 @@ __global__ void extract_kmers_append_kernel(
     const uint32_t* __restrict__ words, int B, int Lw,
     const uint32_t* __restrict__ vwords, int Lv,
     const int32_t* __restrict__ lengths,
-    int k, int P, int canonical, int tile_reads,
+    int k, int P, int canonical, int n_passes, int pass_id, int tile_reads,
     uint32_t* __restrict__ out_kmers, uint8_t* __restrict__ out_valid,
     long long row0) {
   extern __shared__ uint32_t smem[];
@@ -132,23 +148,28 @@ __global__ void extract_kmers_append_kernel(
       }
     }
 
+    uint32_t key[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) key[w] = use_fwd ? fwd[w] : rc[w];
+    if (n_passes > 1) ok = ok && pass_hash<W>(key) % (uint32_t)n_passes == (uint32_t)pass_id;
+
     const long long row = row0 + (long long)(b0 + r) * P + p;
 #pragma unroll
-    for (int w = 0; w < W; ++w) out_kmers[row * W + w] = use_fwd ? fwd[w] : rc[w];
+    for (int w = 0; w < W; ++w) out_kmers[row * W + w] = key[w];
     out_valid[row] = ok ? 1 : 0;
   }
 }
 
 template <int W>
 void launch(const void* words, int B, int Lw, const void* vwords, int Lv,
-            const void* lengths, int k, int P, int canonical, int tile_reads,
-            void* out_kmers, void* out_valid, long long row0, size_t smem,
+            const void* lengths, int k, int P, int canonical, int n_passes, int pass_id,
+            int tile_reads, void* out_kmers, void* out_valid, long long row0, size_t smem,
             cudaStream_t stream) {
   const int blocks = (B + tile_reads - 1) / tile_reads;
   extract_kmers_append_kernel<W><<<blocks, 256, smem, stream>>>(
       static_cast<const uint32_t*>(words), B, Lw,
       static_cast<const uint32_t*>(vwords), Lv,
-      static_cast<const int32_t*>(lengths), k, P, canonical, tile_reads,
+      static_cast<const int32_t*>(lengths), k, P, canonical, n_passes, pass_id, tile_reads,
       static_cast<uint32_t*>(out_kmers), static_cast<uint8_t*>(out_valid), row0);
 }
 
@@ -164,26 +185,27 @@ long long smem_bytes(int tile_reads, int Lw, int Lv, int k, bool with_vwords) {
 
 // words (B, Lw) u32, vwords (B, Lv) u32 or null, lengths (B,) i32 (read when vwords is
 // null); writes rows [row0, row0 + B*P) of out_kmers (rows of W u32) and out_valid (u8),
-// on `device`, in the order of `stream`.
+// on `device`, in the order of `stream`. n_passes > 1 keeps only windows of pass pass_id.
 extern "C" int dk_extract_kmers_append(
     const void* words, int B, int Lw, const void* vwords, int Lv, const void* lengths,
-    int k, int P, int canonical, int tile_reads, void* out_kmers, void* out_valid,
-    long long row0, int device, void* stream) {
+    int k, int P, int canonical, int n_passes, int pass_id, int tile_reads,
+    void* out_kmers, void* out_valid, long long row0, int device, void* stream) {
   if (B <= 0 || P <= 0 || tile_reads <= 0 || k < 1 || k > 63) return cudaErrorInvalidValue;
+  if (n_passes < 1 || pass_id < 0 || pass_id >= n_passes) return cudaErrorInvalidValue;
   const long long smem = smem_bytes(tile_reads, Lw, Lv, k, vwords != nullptr);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DK_LAUNCH(W)                                                                  \
+  launch<W>(words, B, Lw, vwords, Lv, lengths, k, P, canonical, n_passes, pass_id,    \
+            tile_reads, out_kmers, out_valid, row0, smem, s)
   switch ((2 * k + 31) / 32) {
-    case 1: launch<1>(words, B, Lw, vwords, Lv, lengths, k, P, canonical, tile_reads,
-                      out_kmers, out_valid, row0, smem, s); break;
-    case 2: launch<2>(words, B, Lw, vwords, Lv, lengths, k, P, canonical, tile_reads,
-                      out_kmers, out_valid, row0, smem, s); break;
-    case 3: launch<3>(words, B, Lw, vwords, Lv, lengths, k, P, canonical, tile_reads,
-                      out_kmers, out_valid, row0, smem, s); break;
-    default: launch<4>(words, B, Lw, vwords, Lv, lengths, k, P, canonical, tile_reads,
-                       out_kmers, out_valid, row0, smem, s); break;
+    case 1: DK_LAUNCH(1); break;
+    case 2: DK_LAUNCH(2); break;
+    case 3: DK_LAUNCH(3); break;
+    default: DK_LAUNCH(4); break;
   }
+#undef DK_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@ hand-written kernel ``csrc/extract_kmers.cu`` (which replaces the Pallas kernel
 plain version below. There is no fallback from one to the other.
 
 ``extract_canonical_kmers`` and ``vwords_from_lengths`` are the plain version: a
-line-for-line torch transcription of ``denovo_kmer_tpu/ops/extract_fast.py``. uint32 words
+line-for-line torch transcription of ``denovo_kmer_tpu/ops/extract_fast.py``. With
+``n_passes > 1`` both keep only windows whose ``router.pass_of`` bucket is ``pass_id``, the
+pass filter of the JAX multipass step. uint32 words
 are carried in int64 and masked with ``0xFFFFFFFF`` after every left shift (torch has no
 uint32 shifts on the CPU); right shifts of non-negative values need no mask.
 """
@@ -22,6 +24,7 @@ import torch
 from denovo_kmer_tpu_torch.config import words_per_kmer
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, append
 from denovo_kmer_tpu_torch.ops.table import u32
+from denovo_kmer_tpu_torch.parallel.router import pass_of
 
 _M32 = 0xFFFFFFFF
 #: largest shared-memory tile the kernel takes without opting into dynamic shared memory
@@ -136,11 +139,16 @@ def append_plain(
     k: int,
     max_read_len: int,
     canonical: bool = True,
+    n_passes: int = 1,
+    pass_id: int = 0,
 ) -> KmerAccumulator:
-    """The plain version of ``extract_append``: extraction, then the staging append."""
+    """The plain version of ``extract_append``: extraction, the pass filter, then the
+    staging append."""
     if vwords is None:
         vwords = vwords_from_lengths(lengths, words.shape[1] * 16)
     kmers, valid = extract_canonical_kmers(words, vwords, k, max_read_len, canonical)
+    if n_passes > 1:
+        valid = valid & (pass_of(kmers, n_passes) == pass_id)
     return append(acc, kmers, valid)
 
 
@@ -151,7 +159,7 @@ def _kernel_library() -> ctypes.CDLL:
     if lib.dk_extract_kmers_append.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.dk_extract_kmers_append.argtypes = [
-            vp, i, i, vp, i, vp, i, i, i, i, vp, vp, ctypes.c_longlong, i, vp,
+            vp, i, i, vp, i, vp, i, i, i, i, i, i, vp, vp, ctypes.c_longlong, i, vp,
         ]
         lib.dk_extract_kmers_append.restype = ctypes.c_int
     return lib
@@ -187,12 +195,15 @@ def extract_append(
     k: int,
     max_read_len: int,
     canonical: bool = True,
+    n_passes: int = 1,
+    pass_id: int = 0,
 ) -> KmerAccumulator:
     """Extract every window of a packed batch and append it to the staging buffer.
 
     ``words`` (B, Lp/16) int32, and either ``vwords`` (B, Lp/32) int32 or, for a
     length-shipped batch (``vwords=None``), ``lengths`` (B,) int32. Rows
-    ``[fill, fill + B*P)`` of ``acc`` receive window (b, p) at ``fill + b*P + p``. Returns
+    ``[fill, fill + B*P)`` of ``acc`` receive window (b, p) at ``fill + b*P + p``; with
+    ``n_passes > 1`` a window is valid only if its pass bucket is ``pass_id``. Returns
     the accumulator with the larger ``fill``. CUDA tensors launch the kernel (counted in
     ``extract_append.launches``); CPU tensors run ``append_plain``.
     """
@@ -206,6 +217,8 @@ def extract_append(
         raise ValueError(f"staging holds {acc.kmers.shape[1]}-word keys, k={k} needs {W}")
     if acc.fill + B * P > acc.slots:
         raise ValueError(f"staging overflow: {acc.fill} + {B * P} rows > {acc.slots} slots")
+    if not 0 <= pass_id < n_passes:
+        raise ValueError(f"pass_id {pass_id} outside [0, {n_passes})")
     _check(words, "words", (B, Lw), dev)
     if vwords is not None:
         _check(vwords, "vwords", (B, Lw // 2), dev)
@@ -214,7 +227,8 @@ def extract_append(
             raise ValueError("a batch needs vwords or lengths")
         _check(lengths, "lengths", (B,), dev)
     if dev.type != "cuda":
-        return append_plain(acc, words, vwords, lengths, k, max_read_len, canonical)
+        return append_plain(acc, words, vwords, lengths, k, max_read_len, canonical,
+                            n_passes, pass_id)
     if acc.kmers.dtype != torch.int32 or acc.valid.dtype != torch.bool:
         raise TypeError("staging buffer must be int32 keys and bool valid")
     if B == 0:
@@ -226,7 +240,7 @@ def extract_append(
         words.data_ptr(), B, Lw,
         vwords.data_ptr() if vwords is not None else None, Lw // 2,
         lengths.data_ptr() if vwords is None else None,
-        k, P, int(bool(canonical)), tile,
+        k, P, int(bool(canonical)), n_passes, pass_id, tile,
         acc.kmers.data_ptr(), acc.valid.data_ptr(), acc.fill,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,

@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own w
 
 into ``denovo_kmer_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is of the source and the
 flags, so an edited source rebuilds). Nothing is built at import: the first caller that
-launches a kernel triggers the build.
+launches a kernel triggers the build. ``load_all`` starts one ``nvcc`` for each source at
+once and waits for all of them.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -40,23 +41,40 @@ def _nvcc() -> str:
     return found
 
 
+def _library_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """The shared libraries of ``csrc/<name>.cu`` for each name; the missing ones are
+    compiled first, all ``nvcc`` processes started together."""
+    with _lock:
+        todo = {n: _library_path(n) for n in names if n not in _libs}
+        builds = {}
+        for name, out in todo.items():
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.tmp{os.getpid()}"
+                src = os.path.join(CSRC, f"{name}.cu")
+                builds[name] = (tmp, subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in builds.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, out in todo.items():
+            _libs[name] = ctypes.CDLL(out)
+        return {n: _libs[n] for n in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, compiled first if it is not built yet."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.tmp{os.getpid()}"
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}.cu:\n{r.stdout}{r.stderr}")
-            os.replace(tmp, out)
-        lib = _libs[name] = ctypes.CDLL(out)
-        return lib
+    return load_all([name])[name]

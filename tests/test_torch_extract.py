@@ -4,6 +4,8 @@ reads with Ns and mixed lengths. Valid masks are compared exactly, keys where va
 CUDA kernel of the same module is held against this plain version on the card by
 chip_smoke.py (there is no card here)."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,3 +152,51 @@ def test_kernel_tile_fits_shared_memory():
     assert _tile_reads(64, Lw, 63, 64, with_vwords=True) == 48 * 1024 // per_read == 18
     with pytest.raises(ValueError):
         _tile_reads(64, 8192, 63, 16 * 8192 - 62, with_vwords=False)
+
+
+@pytest.fixture(scope="module")
+def jax_pass_step():
+    from denovo_kmer_tpu.pipeline import make_ingest_step as jax_make_ingest_step
+
+    cfg = JaxConfig(k=31, max_read_len=96, batch_reads=64, table_capacity=1 << 10)
+    return cfg, jax_make_ingest_step(cfg, n_passes=3)[0]
+
+
+@pytest.mark.parametrize("pass_id", [0, 1, 2])
+@pytest.mark.parametrize("feed", ["vwords", "lengths"])
+def test_pass_filter_matches_jax_ingest_step(jax_pass_step, pass_id, feed):
+    """``n_passes=3``: the staged rows and valid mask of JAX's multipass ingest step."""
+    from denovo_kmer_tpu.ops.stream import empty_accumulator as jax_empty_accumulator
+    from denovo_kmer_tpu_torch.pipeline import make_ingest_step
+
+    jcfg, jstep = jax_pass_step
+    p = _packed(31, 96, n_rate=0.01 if feed == "vwords" else 0.0)
+    assert p.prefix_valid == (feed == "lengths")
+    P = 96 - 31 + 1
+    want = jstep.append_packed(jax_empty_accumulator(64 * P, 2), p, jnp.uint32(pass_id))
+    placed = dataclasses.replace(
+        p, words=as_int32_tensor(p.words),
+        vwords=None if feed == "lengths" else as_int32_tensor(p.vwords),
+        length=as_int32_tensor(p.length))
+    step = make_ingest_step(EngineConfig(k=31, max_read_len=96, batch_reads=64,
+                                         table_capacity=1 << 10), n_passes=3)
+    got = step(empty_accumulator(64 * P, 2), placed, pass_id)
+    want_v = np.asarray(want.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), want_v)
+    np.testing.assert_array_equal(got.kmers.numpy().view(np.uint32)[want_v],
+                                  np.asarray(want.kmers)[want_v])
+    assert 0 < want_v.sum() < 0.5 * 64 * P  # about a third of the windows stay
+
+
+def test_pass_filters_partition_the_windows():
+    """The three passes' valid masks are disjoint and cover the unfiltered mask."""
+    p = _packed(21, 64)
+    args = (as_int32_tensor(p.words), as_int32_tensor(p.vwords), None, 21, 64)
+    rows = 64 * (64 - 21 + 1)
+    full = extract_append(empty_accumulator(rows, 2), *args)
+    masks = [extract_append(empty_accumulator(rows, 2), *args, n_passes=3, pass_id=i).valid
+             for i in range(3)]
+    assert torch.equal(masks[0] | masks[1] | masks[2], full.valid)
+    assert not (masks[0] & masks[1]).any() and not (masks[1] & masks[2]).any()
+    with pytest.raises(ValueError, match="pass_id"):
+        extract_append(empty_accumulator(rows, 2), *args, n_passes=3, pass_id=3)

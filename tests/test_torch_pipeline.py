@@ -171,8 +171,9 @@ def test_cli_call_cpu_matches_jax_cli(trio_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--passes", "2"], ["--mesh", "2x1"], ["--spill", "spill_dir", "--passes", "2"],
-    ["--spill-rows", "1000", "--passes", "2"], ["--region", "chr20"],
+    ["--passes", "2", "--mesh", "2x2"], ["--mesh", "2x1"],
+    ["--spill-rows", "1000", "--passes", "2", "--mesh", "1x2"],
+    ["--spill-rows", "1000", "--passes", "2", "--mesh", "2x1"], ["--region", "chr20"],
     ["--regions-bed", "r.bed"], ["--read-len-buckets", "32,64"], ["--ingest-threads", "4"],
     ["--profile-dir", "prof"], ["--evidence-out", "ev.bam"], ["--sites-out", "s.tsv"],
 ])

@@ -44,6 +44,7 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import denovo_kmer_tpu_torch.cli, denovo_kmer_tpu_torch.pipeline\n"
         "import denovo_kmer_tpu_torch.ops.extract, denovo_kmer_tpu_torch.io.synth\n"
+        "import denovo_kmer_tpu_torch.ops.spill, denovo_kmer_tpu_torch.ops.partition\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
