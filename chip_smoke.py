@@ -4,47 +4,63 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout, on a machine with an NVIDIA card (sm_90a, nvcc under
-/usr/local/cuda or $CUDA_HOME). It exits non-zero, printing no result, without a card or
-without the package beside it. Phases, each printed as one JSON line:
+/usr/local/cuda or $CUDA_HOME) and g++ with zlib. It exits non-zero, printing no result,
+without a card or without the package beside it. Phases, each printed as one JSON line:
 
-1. build    — compile every CUDA kernel of the main paths from denovo_kmer_tpu_torch/csrc,
-              one nvcc a source, all started together.
+1. build    — compile every CUDA kernel from denovo_kmer_tpu_torch/csrc, one nvcc a source,
+              all started together; then the C++ BAM feeder (g++, zlib), which must build.
 2. kernels  — each kernel against its plain PyTorch version on the card (tolerance 0: every
               quantity is an integer), timed by CUDA events (median after warm-up) beside
               its bound and, where one PyTorch call computes the same function, that call:
               extraction at the main-path batch (B=16384, max_read_len=160) over k in
-              {15,21,31,32,33,63}, canonical on/off, vwords and length-shipped feeds, and
-              with the multipass filter (k=31, n_passes=3, pass_id 0 and 2): valid masks
-              identical, keys bit-exact where valid; the partition at the spill window
-              (N=34,078,720 rows of 2 words, 5 buckets through the spill's entry, 8 through
-              the JAX-contract entry) and at benchmarks/micro_radix_partition.py's shape
-              (N=2^24, C=4, 16 buckets): rows and counts bit-exact. Then the library time of
-              the unported block sort's function (benchmarks/micro_pallas_sort.py).
-3. parity   — on a small synthetic trio, on the card and on the CPU: run_trio at k=31 (the
+              {15,21,31,32,33,63}, canonical on/off, vwords and length-shipped feeds, with
+              the multipass filter (k=31, n_passes=3, pass_id 0 and 2), and at the bucket
+              widths 64 and 112 (k=31): valid masks identical, keys bit-exact where valid;
+              the partition at the spill window (N=34,078,720 rows of 2 words, 5 buckets
+              through the spill's entry, 8 through the JAX-contract entry) and at
+              benchmarks/micro_radix_partition.py's shape (N=2^24, C=4, 16 buckets): rows
+              and counts bit-exact; the block sort at block heights {2, 64, 2048} x {1, 3,
+              128} columns x keys over the full range, from a small range (ties) and >= 2^31,
+              then at benchmarks/micro_pallas_sort.py's shape (2^22 x 128, 2048-row blocks):
+              keys and payloads bit-exact, beside its torch.sort yardstick.
+3. parity   — on small synthetic trios, on the card and on the CPU: run_trio at k=31 (the
               fused call) and k=32 (the call_from_score fallback), one batch a window so
               the parents merge into populated tables and the child takes the compacting,
               capacity-growing flush_score; run_trio_spill with a device store (3 passes)
-              and run_trio_multipass (2 passes): identical reports.
+              and run_trio_multipass (2 passes); a length-bucketed run_trio on a
+              mixed-length trio, and run_trio fed `count` checkpoints of the parents:
+              identical reports.
 4. main     — run_trio on a 4 Mbp genome with 3 x 262,144 reads of 151 bp, written as BAMs,
-              at k=31, batch_reads=16384, accum_batches=16, table_capacity=2^23, under a
-              torch.profiler trace of the device (busy time by kernel, idle share); the
-              parent tables and the candidates are held against a numpy reference computed
-              on the host from the same reads, and every planted de novo SNV must lie under
-              a candidate.
+              at k=31, batch_reads=16384, accum_batches=16, table_capacity=2^23, decoded by
+              the C++ feeder, under a torch.profiler trace of the device (busy time by
+              kernel, idle share); the parent tables and the candidates are held against a
+              numpy reference computed on the host from the same reads, and every planted
+              de novo SNV must lie under a candidate. Then the same call on the pure-Python
+              decoder, which must give the same candidates; both runs' feed_wait is printed.
 5. multipass — the same BAMs and config: run_trio_spill with 4 passes into a device store
               of 12,000,000 rows a pass; run_trio_spill with 4 passes into a host spill
               directory, then again (it must decode nothing); run_trio_multipass with 2
               passes. Each report must equal phase 4's byte for byte, and the partition
               kernel must launch once a staging window (3 a decoding spill run).
+6. checkpoints, buckets — the same BAMs and config: `count` of mom and dad to .npz through
+              the CLI (tables equal the numpy reference); a resumable `count` stopped right
+              after its first saved cursor and resumed equals the uninterrupted one;
+              run_trio with both .npz parents equals phase 4's report; `probe` of 1,000
+              k-mers (candidates and random parental k-mers) prints the reference's counts.
+              Then a mixed-length trio (phase 4's reads trimmed to 60-151 bp): run_trio, and
+              with read_len_buckets (64, 112, 160) run_trio, the device-store spill (4
+              passes) and the 2-pass re-decode, each equal to the unbucketed run_trio.
 
-Each path of phases 4 and 5 runs with every kernel's launch count set to 0 just before it
-and read just after; the counts come from those runs alone. Then a ``kernels`` line (one
-entry per kernel), the card's name and power limit as nvidia-smi gives them, and last
-``{"ok": true, "device": {...}}``.
+Each path of phases 4 to 6 runs with every kernel's launch count set to 0 just before it
+and read just after; the counts come from those runs alone (the block sort is a probe that
+no path launches). Then a ``kernels`` line (one entry per kernel), the card's name and
+power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
 import contextlib
+import dataclasses
+import io
 import json
 import os
 import shutil
@@ -58,7 +74,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ["extract_kmers", "radix_partition"]
+KERNELS = ["extract_kmers", "radix_partition", "block_sort"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT_OPS_PER_S = 67e12  # the data sheet's non-tensor (float32) peak, used for integer ALU ops
 
@@ -103,7 +119,7 @@ def make_batch(rng, B, max_len, n_rate):
     Lp = padded_length(max_len)
     codes = rng.integers(0, 4, size=(B, Lp), dtype=np.uint8)
     lengths = rng.integers(max_len // 3, max_len + 1, size=B).astype(np.int32)
-    lengths[: B // 4] = 151  # the main path's read length
+    lengths[: B // 4] = min(READ_LEN, max_len)  # the main path's read length
     lengths[-64:] = 0  # padding rows of a partial batch
     pos = np.arange(Lp)[None, :]
     valid = (pos < lengths[:, None]) & (rng.random((B, Lp)) >= n_rate)
@@ -122,78 +138,79 @@ def extraction_bytes_ops(B, Lw, k, max_len, canonical, with_vwords):
     return nbytes, B * P * per_window
 
 
-def phase_kernels(rng):
-    from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+def check_extraction(words, vwords, lengths, k, max_len, canonical, n_passes=1, pass_id=0):
+    """Kernel against plain version on one batch: valid masks identical, keys bit-exact
+    where valid; then both timed. Returns (max_abs_err, valid windows, ms, plain_ms)."""
     from denovo_kmer_tpu_torch.ops.extract import append_plain, extract_append
     from denovo_kmer_tpu_torch.ops.stream import empty_accumulator
 
+    dev = words.device
+    B = words.shape[0]
+    W, P = -(-2 * k // 32), max_len - k + 1
+    acc_k = empty_accumulator(B * P, W, dev)
+    acc_p = empty_accumulator(B * P, W, dev)
+    args = (words, vwords, lengths, k, max_len, canonical, n_passes, pass_id)
+    extract_append(acc_k, *args)
+    append_plain(acc_p, *args)
+    torch.cuda.synchronize()
+    what = f"k={k} max_read_len={max_len} canonical={canonical} " \
+           f"{'vwords' if vwords is not None else 'lengths'} n_passes={n_passes}/{pass_id}"
+    if not torch.equal(acc_k.valid, acc_p.valid):
+        raise AssertionError(f"valid masks differ: {what}")
+    v = acc_k.valid
+    diff = ((acc_k.kmers.to(torch.int64) & 0xFFFFFFFF)
+            - (acc_p.kmers.to(torch.int64) & 0xFFFFFFFF)).abs()[v]
+    err = int(diff.max()) if diff.numel() else 0
+    if err != 0:
+        raise AssertionError(f"keys differ where valid: {what} max_abs_err={err}")
+    n_valid = int(v.sum())
+    if n_valid == 0:
+        raise AssertionError(f"no valid window: {what}")
+    ms = cuda_ms(lambda: extract_append(acc_k, *args))
+    plain_ms = cuda_ms(lambda: append_plain(acc_p, *args))
+    return err, n_valid, ms, plain_ms
+
+
+def phase_kernels(rng):
+    from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+
     dev = torch.device("cuda")
-    B, max_len = 16384, 160
-    batches = {"vwords": make_batch(rng, B, max_len, 0.01),
-               "lengths": make_batch(rng, B, max_len, 0.0)}
-    assert not batches["vwords"].prefix_valid and batches["lengths"].prefix_valid
+    B = 16384
     cases, worst = [], 0
-    for feed, p in batches.items():
-        words = as_int32_tensor(p.words).to(dev)
-        vwords = as_int32_tensor(p.vwords).to(dev) if feed == "vwords" else None
-        lengths = as_int32_tensor(p.length).to(dev) if feed == "lengths" else None
-        for k in (15, 21, 31, 32, 33, 63):
-            for canonical in (True, False):
-                W, P = -(-2 * k // 32), max_len - k + 1
-                acc_k = empty_accumulator(B * P, W, dev)
-                acc_p = empty_accumulator(B * P, W, dev)
-                extract_append(acc_k, words, vwords, lengths, k, max_len, canonical)
-                append_plain(acc_p, words, vwords, lengths, k, max_len, canonical)
-                torch.cuda.synchronize()
-                if not torch.equal(acc_k.valid, acc_p.valid):
-                    raise AssertionError(f"valid masks differ: k={k} {feed} "
-                                         f"canonical={canonical}")
-                v = acc_k.valid
-                diff = ((acc_k.kmers.to(torch.int64) & 0xFFFFFFFF)
-                        - (acc_p.kmers.to(torch.int64) & 0xFFFFFFFF)).abs()[v]
-                err = int(diff.max()) if diff.numel() else 0
-                if err != 0:
-                    raise AssertionError(f"keys differ where valid: k={k} {feed} "
-                                         f"canonical={canonical} max_abs_err={err}")
-                n_valid = int(v.sum())
-                if n_valid == 0:
-                    raise AssertionError(f"no valid window: k={k} {feed}")
-                worst = max(worst, err)
-                ms = cuda_ms(lambda: extract_append(acc_k, words, vwords, lengths, k,
-                                                    max_len, canonical))
-                plain_ms = cuda_ms(lambda: append_plain(acc_p, words, vwords, lengths, k,
-                                                        max_len, canonical))
-                nbytes, ops = extraction_bytes_ops(B, p.words.shape[1], k, max_len,
-                                                   canonical, feed == "vwords")
-                bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-                cases.append(dict(k=k, canonical=canonical, feed=feed, windows=B * P,
-                                  valid=n_valid, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=max(bytes_ms, ops_ms),
-                                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                                  bytes=nbytes, ops=ops))
-        for pass_id in (0, 2):  # the multipass filter: k=31, 3 passes
-            k, W, P = 31, 2, max_len - 31 + 1
-            acc_k = empty_accumulator(B * P, W, dev)
-            acc_p = empty_accumulator(B * P, W, dev)
-            extract_append(acc_k, words, vwords, lengths, k, max_len, True, 3, pass_id)
-            append_plain(acc_p, words, vwords, lengths, k, max_len, True, 3, pass_id)
-            torch.cuda.synchronize()
-            v = acc_k.valid
-            if not torch.equal(v, acc_p.valid) or not torch.equal(acc_k.kmers[v],
-                                                                  acc_p.kmers[v]):
-                raise AssertionError(f"pass filter differs: {feed} pass_id={pass_id}")
-            n_valid = int(v.sum())
-            if n_valid == 0:
-                raise AssertionError(f"no window kept: {feed} pass_id={pass_id}")
-            ms = cuda_ms(lambda: extract_append(acc_k, words, vwords, lengths, k, max_len,
-                                                True, 3, pass_id))
-            plain_ms = cuda_ms(lambda: append_plain(acc_p, words, vwords, lengths, k,
-                                                    max_len, True, 3, pass_id))
-            cases.append(dict(k=k, canonical=True, feed=feed, n_passes=3, pass_id=pass_id,
-                              windows=B * P, valid=n_valid, max_abs_err=0, ms=ms,
-                              plain_ms=plain_ms))
-    emit({"phase": "kernels", "kernel": "extract_kmers", "B": B, "max_read_len": max_len,
-          "cases": cases})
+    # the main width over every key width, then the bucket widths of phase 6 at k=31
+    for max_len, ks in ((160, (15, 21, 31, 32, 33, 63)),
+                        *((w, (K,)) for w in BUCKETS[:-1])):
+        batches = {"vwords": make_batch(rng, B, max_len, 0.01),
+                   "lengths": make_batch(rng, B, max_len, 0.0)}
+        assert not batches["vwords"].prefix_valid and batches["lengths"].prefix_valid
+        for feed, p in batches.items():
+            words = as_int32_tensor(p.words).to(dev)
+            vwords = as_int32_tensor(p.vwords).to(dev) if feed == "vwords" else None
+            lengths = as_int32_tensor(p.length).to(dev) if feed == "lengths" else None
+            for k in ks:
+                for canonical in (True, False):
+                    err, n_valid, ms, plain_ms = check_extraction(
+                        words, vwords, lengths, k, max_len, canonical)
+                    worst = max(worst, err)
+                    nbytes, ops = extraction_bytes_ops(B, p.words.shape[1], k, max_len,
+                                                       canonical, feed == "vwords")
+                    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+                    cases.append(dict(k=k, max_read_len=max_len, canonical=canonical,
+                                      feed=feed, windows=B * (max_len - k + 1),
+                                      valid=n_valid, max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                                      bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                                      bytes=nbytes, ops=ops))
+            if max_len != 160:
+                continue
+            for pass_id in (0, 2):  # the multipass filter: k=31, 3 passes
+                err, n_valid, ms, plain_ms = check_extraction(
+                    words, vwords, lengths, K, max_len, True, 3, pass_id)
+                cases.append(dict(k=K, max_read_len=max_len, canonical=True, feed=feed,
+                                  n_passes=3, pass_id=pass_id,
+                                  windows=B * (max_len - K + 1), valid=n_valid,
+                                  max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    emit({"phase": "kernels", "kernel": "extract_kmers", "B": B, "cases": cases})
     return cases, worst
 
 
@@ -271,31 +288,78 @@ def phase_partition():
     return cases
 
 
-def phase_block_sort_library():
-    """The library time of benchmarks/micro_pallas_sort.py's function (a batched sort of
-    (2048, 128) u32 key blocks with a u32 payload, 2^22 x 128 of each), whose TPU kernel is
-    not ported yet: one torch.sort along the block's rows plus the payload gather."""
+BLOCK_SORT_SHAPE = (1 << 22, 128)  # benchmarks/micro_pallas_sort.py: BLOCKS * R rows, 128 lanes
+BLOCK_SORT_R = 2048  # its MICRO_R
+
+
+def block_sort_library(keys, pays, R):
+    """One PyTorch call for the same function (the yardstick; the port never calls it): a
+    sort along each block's rows, then the payload gather. Its order of equal keys is not
+    the network's, so it is timed, not compared bit for bit."""
+    L = keys.shape[1]
+    s = torch.sort(keys.view(-1, R, L) ^ -(1 << 31), dim=1)
+    return ((s.values ^ -(1 << 31)).view(-1, L),
+            torch.take_along_dim(pays.view(-1, R, L), s.indices, dim=1).view(-1, L))
+
+
+def phase_block_sort():
+    """The block-sort kernel against its plain version, bit for bit (keys and payloads): at
+    the edge shapes (block heights 2, 64, 2048; 1, 3 and 128 columns; keys over the whole
+    range, from a small range with many ties, and >= 2^31), then at the Pallas probe's
+    shape, where kernel, plain version and the torch.sort yardstick are timed beside the
+    bound."""
+    from denovo_kmer_tpu_torch.ops.block_sort import block_lanes, block_sort, block_sort_plain
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    keys = torch.randint(0, 2**31, (1 << 22, 128), dtype=torch.int32, device=dev,
-                         generator=gen)
-    pays = torch.randint(0, 2**31, (1 << 22, 128), dtype=torch.int32, device=dev,
-                         generator=gen)
 
-    def library():
-        s = torch.sort(keys.view(-1, 2048, 128), dim=1)
-        return s.values, torch.take_along_dim(pays.view(-1, 2048, 128), s.indices, dim=1)
+    def rand(shape, lo, hi):
+        return torch.randint(lo, hi, shape, dtype=torch.int64, device=dev,
+                             generator=gen).to(torch.int32)
 
-    sk, sp = library()
-    torch.cuda.synchronize()
-    if not bool((sk[:, 1:] >= sk[:, :-1]).all()):
-        raise AssertionError("block sort yardstick does not sort")
-    del sk, sp
-    ms = cuda_ms(library, reps=5, warmup=1)
-    nbytes = 4 * keys.numel() * 4  # two arrays read once and written once
-    out = {"phase": "block_sort_library", "shape": [1 << 22, 128], "block_rows": 2048,
-           "library_ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "bytes": nbytes}
+    def compare(keys, pays, R, what):
+        got = block_sort(keys, pays, R)
+        want = block_sort_plain(keys, pays, R)
+        torch.cuda.synchronize()
+        err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
+                      .abs().max()) for g, w in zip(got, want))
+        if err != 0:
+            raise AssertionError(f"block sort differs from its plain version: {what} "
+                                 f"max_abs_err={err}")
+        k = got[0].view(-1, R, keys.shape[1]).to(torch.int64) & 0xFFFFFFFF
+        if not bool((k[:, 1:] >= k[:, :-1]).all()):
+            raise AssertionError(f"block sort output does not ascend: {what}")
+        return err
+
+    edges = []
+    for R in (2, 64, 2048):
+        for L in (1, 3, 128):
+            for name, lo, hi in (("full", 0, 2**32), ("ties", 0, 8), ("high", 2**31, 2**32)):
+                N = 4 * R
+                keys = rand((N, L), lo, hi)
+                pays = torch.arange(N * L, dtype=torch.int32, device=dev).view(N, L)
+                edges.append(dict(R=R, L=L, keys=name,
+                                  max_abs_err=compare(keys, pays, R, f"R={R} L={L} {name}")))
+    N, L = BLOCK_SORT_SHAPE
+    R = BLOCK_SORT_R
+    keys = rand((N, L), 0, 2**32)
+    pays = rand((N, L), 0, 2**32)
+    err = compare(keys, pays, R, "the probe's shape")
+    ms = cuda_ms(lambda: block_sort(keys, pays, R), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: block_sort_plain(keys, pays, R), reps=2, warmup=1)
+    library_ms = cuda_ms(lambda: block_sort_library(keys, pays, R), reps=5, warmup=1)
+    block_sort.launches = 0  # the comparisons above do not count
+    nbytes = 4 * keys.numel() * 4  # keys and payloads read once and written once
+    stages = R.bit_length() - 1
+    stages = stages * (stages + 1) // 2
+    ops = (N // 2) * L * stages * 4  # a compare, a select and two moves a pair and stage
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    out = {"phase": "kernels", "kernel": "block_sort", "shape": [N, L], "block_rows": R,
+           "lanes_per_cta": block_lanes(R, L), "stages": stages, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "ops": ops, "edge_cases": edges}
     del keys, pays
     torch.cuda.empty_cache()
     emit(out)
@@ -356,6 +420,45 @@ def phase_parity(work):
           "reads": {s: len(r) for s, r in trio.reads.items()}, **out})
 
 
+def phase_parity_buckets(work):
+    """cuda == cpu at a small size for a bucketed run_trio on a mixed-length trio (reads of
+    60-151 bp) and for run_trio fed `count` checkpoints of the parents; both reports equal
+    the plain run_trio's."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.pipeline import build_sample_table, run_trio
+    from denovo_kmer_tpu_torch.utils.checkpoint import save_table
+
+    rng = np.random.default_rng(11)
+    paths = write_mixed_trio(rng, os.path.join(work, "small_mixed"), genome_len=20000,
+                             n_reads=3000, n_snvs=5)[0]
+    plain = EngineConfig(k=K, max_read_len=160, batch_reads=1024, accum_batches=1,
+                         table_capacity=1 << 17)
+    buck = dataclasses.replace(plain, read_len_buckets=BUCKETS)
+    trio = (paths["mom"], paths["dad"], paths["child"])
+    want = run_trio(*trio, plain, device="cuda")
+    if not want.candidates:
+        raise AssertionError("no candidates on the small mixed-length trio")
+    npz = {}
+    for s_ in ("mom", "dad"):
+        npz[s_] = os.path.join(work, "small_mixed", f"{s_}.npz")
+        save_table(npz[s_], build_sample_table(paths[s_], plain, device="cuda"), plain,
+                   source=paths[s_])
+    out = {}
+    for name, call, cfg in (("bucketed", trio, buck),
+                            ("npz_parents", (npz["mom"], npz["dad"], paths["child"]), plain)):
+        t0 = time.perf_counter()
+        gpu = run_trio(*call, cfg, device="cuda")
+        t1 = time.perf_counter()
+        cpu = run_trio(*call, cfg, device="cpu")
+        t2 = time.perf_counter()
+        if (gpu.report, gpu.tables_n) != (cpu.report, cpu.tables_n):
+            raise AssertionError(f"{name} run_trio on cuda != on cpu")
+        if (gpu.report, gpu.tables_n) != (want.report, want.tables_n):
+            raise AssertionError(f"{name} run_trio != the plain run_trio")
+        out[name] = dict(candidates=len(gpu.candidates), cuda_s=t1 - t0, cpu_s=t2 - t1)
+    emit({"phase": "parity_buckets_checkpoints", "buckets": list(BUCKETS), **out})
+
+
 # ---------------------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------------------
@@ -367,20 +470,22 @@ GENOME_LEN = 4_000_000
 N_SNVS = 50
 MAIN_CFG = dict(k=K, max_read_len=160, batch_reads=16384, accum_batches=16,
                 table_capacity=1 << 23)
+BUCKETS = (64, 112, 160)  # phase 6's read_len_buckets
 
 
-def sample_reads(rng, genome, n_rate):
+def sample_reads(rng, genome, n_rate, n=N_READS):
     """n reads of READ_LEN from random positions, half reverse-complemented; codes with 4 = N."""
-    pos = rng.integers(0, len(genome) - READ_LEN + 1, size=N_READS)
+    pos = rng.integers(0, len(genome) - READ_LEN + 1, size=n)
     codes = genome[pos[:, None] + np.arange(READ_LEN)[None, :]]
-    rev = rng.random(N_READS) < 0.5
+    rev = rng.random(n) < 0.5
     codes[rev] = 3 - codes[rev, ::-1]
     if n_rate:
         codes[rng.random(codes.shape) < n_rate] = 4
     return pos, rev, codes
 
 
-def write_bam(path, name, codes, pos, rev, genome_len):
+def write_bam(path, name, codes, pos, rev, genome_len, lens=None):
+    """One BAM record a row of ``codes``; ``lens`` trims row i to its first lens[i] bases."""
     from denovo_kmer_tpu_torch.io.bam import BamRecord, BamWriter
 
     text = np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
@@ -388,9 +493,48 @@ def write_bam(path, name, codes, pos, rev, genome_len):
     with open(path, "wb") as f, BamWriter(f, references=[("chrS", genome_len)],
                                           level=1) as w:
         for i in range(codes.shape[0]):
+            n = L if lens is None else int(lens[i])
             w.write(BamRecord(name=f"{name}_r{i}", flag=0x10 if rev[i] else 0, refid=0,
-                              pos=int(pos[i]), mapq=60, cigar=((L, 0),),
-                              seq=text[i * L:(i + 1) * L]))
+                              pos=int(pos[i]), mapq=60, cigar=((n, 0),),
+                              seq=text[i * L:i * L + n]))
+
+
+def write_mixed_trio(rng, outdir, genome=None, child_genome=None, genome_len=None,
+                     n_reads=N_READS, n_snvs=0, samples=None):
+    """A trio of reads trimmed to 60-151 bp, written as BAMs: from ``samples`` (pos, rev,
+    codes) when given, else sampled from ``genome``/``child_genome`` (drawn with ``n_snvs``
+    child SNVs when not given). Returns (paths, total bases)."""
+    os.makedirs(outdir, exist_ok=True)
+    if samples is None:
+        if genome is None:
+            genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
+            child_genome = genome.copy()
+            snvs = rng.choice(np.arange(200, genome_len - 200), n_snvs, replace=False)
+            child_genome[snvs] = (child_genome[snvs] + rng.integers(1, 4, n_snvs)) % 4
+        samples = {"mom": sample_reads(rng, genome, 0.0, n_reads),
+                   "dad": sample_reads(rng, genome, 0.0, n_reads),
+                   "child": sample_reads(rng, child_genome, 0.001, n_reads)}
+    paths, bases = {}, 0
+    for name, (pos, rev, codes) in samples.items():
+        lens = rng.integers(60, READ_LEN + 1, size=codes.shape[0])
+        bases += int(lens.sum())
+        paths[name] = os.path.join(outdir, f"{name}.bam")
+        write_bam(paths[name], name, codes, pos, rev, GENOME_LEN, lens)
+    return paths, bases
+
+
+@contextlib.contextmanager
+def python_feeder():
+    """Run the pipeline on the pure-Python BAM decoder: the C++ feeder reports itself
+    unavailable for the duration."""
+    from denovo_kmer_tpu_torch.io import native
+
+    real = native.native_available
+    native.native_available = lambda: False
+    try:
+        yield
+    finally:
+        native.native_available = real
 
 
 def reference_counts(codes):
@@ -440,6 +584,7 @@ def check_table(table, ref_keys, ref_counts, n_windows, capacity, name):
 
 def phase_main(rng, work):
     from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.io.native import NativeBamFeeder
     from denovo_kmer_tpu_torch.pipeline import build_sample_table, run_trio
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
@@ -464,11 +609,13 @@ def phase_main(rng, work):
     torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         reset_launches()  # count the main path's launches alone
+        NativeBamFeeder.batches = 0
         t3 = time.perf_counter()
         res = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, m, device="cuda")
         torch.cuda.synchronize()
         t4 = time.perf_counter()
         launches = read_launches()
+        native_batches = NativeBamFeeder.batches
     peak = torch.cuda.max_memory_allocated()
     device = device_time(prof, os.path.join(work, "main_trace.json"), t4 - t3)
     batches = m.counters["batches"]
@@ -477,6 +624,9 @@ def phase_main(rng, work):
                              f"for {batches} batches")
     if launches["radix_partition"] != 0:
         raise AssertionError("run_trio launched the partition kernel")
+    if native_batches != batches:
+        raise AssertionError(f"the C++ feeder returned {native_batches} of run_trio's "
+                             f"{batches} batches")
 
     # checks against the host reference: parent tables, candidates, planted SNVs
     t5 = time.perf_counter()
@@ -503,36 +653,63 @@ def phase_main(rng, work):
         raise AssertionError(f"planted SNVs under no candidate: {missed}")
     t6 = time.perf_counter()
 
-    s = m.seconds
-    child_kmers = N_READS * cfg.windows_per_read
+    # the same call on the pure-Python decoder: the same report, the same candidates
+    m_py = Metrics()
+    with python_feeder():
+        reset_launches()
+        NativeBamFeeder.batches = 0
+        t7 = time.perf_counter()
+        res_py = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, m_py, device="cuda")
+        torch.cuda.synchronize()
+        t8 = time.perf_counter()
+        launches_py = read_launches()
+        native_batches_py = NativeBamFeeder.batches
+    if native_batches_py != 0:
+        raise AssertionError(f"the C++ feeder returned {native_batches_py} batches of the "
+                             "run on the Python decoder")
+    if res_py.report != res.report or res_py.candidates != want:
+        raise AssertionError("run_trio on the Python decoder differs from the reference")
+    if launches_py["extract_kmers"] != batches:
+        raise AssertionError(f"extract_kmers launched {launches_py['extract_kmers']} times "
+                             f"for {batches} batches (Python decoder)")
+
+    def stages(mm, wall):
+        sec = mm.seconds
+        return {"run_trio_s": wall, "build_mom_s": sec["build_mom"],
+                "build_dad_s": sec["build_dad"], "build_child_s": sec["build_child"],
+                "trio_call_s": sec["trio_call"], "feed_wait_s": sec.get("feed_wait", 0.0),
+                "child_kmers_per_s": N_READS * cfg.windows_per_read / sec["build_child"]}
+
     emit({"phase": "main", "config": MAIN_CFG,
           "reads_per_sample": N_READS, "read_len": READ_LEN, "genome_len": GENOME_LEN,
-          "data_s": t1 - t0, "bam_write_s": t2 - t1, "run_trio_s": t4 - t3,
-          "build_mom_s": s["build_mom"], "build_dad_s": s["build_dad"],
-          "build_child_s": s["build_child"], "trio_call_s": s["trio_call"],
-          "feed_wait_s": s.get("feed_wait", 0.0),
-          "child_kmers_per_s": child_kmers / s["build_child"],
+          "data_s": t1 - t0, "bam_write_s": t2 - t1, "feeder": "native",
+          "native_feeder_batches": native_batches, **stages(m, t4 - t3),
           "candidates": len(res.candidates), "tables_n": res.tables_n,
           "planted_snvs": N_SNVS, "snvs_recovered": N_SNVS - len(missed),
           "batches": batches, "launches": launches, "peak_device_bytes": peak,
-          "device": device, "check_s": t6 - t5})
-    return paths, res.report, batches
+          "device": device, "check_s": t6 - t5,
+          "python_feeder": {**stages(m_py, t8 - t7), "launches": launches_py,
+                            "native_feeder_batches": native_batches_py}})
+    return dict(paths=paths, report=res.report, batches=batches, samples=samples, ref=ref,
+                launches=launches)
+
+
+def _counters():
+    from denovo_kmer_tpu_torch.ops.block_sort import block_sort
+    from denovo_kmer_tpu_torch.ops.extract import extract_append
+    from denovo_kmer_tpu_torch.ops.partition import partition_kernel
+
+    return {"extract_kmers": extract_append, "radix_partition": partition_kernel,
+            "block_sort": block_sort}
 
 
 def reset_launches():
-    from denovo_kmer_tpu_torch.ops.extract import extract_append
-    from denovo_kmer_tpu_torch.ops.partition import partition_kernel
-
-    extract_append.launches = 0
-    partition_kernel.launches = 0
+    for wrapper in _counters().values():
+        wrapper.launches = 0
 
 
 def read_launches():
-    from denovo_kmer_tpu_torch.ops.extract import extract_append
-    from denovo_kmer_tpu_torch.ops.partition import partition_kernel
-
-    return {"extract_kmers": extract_append.launches,
-            "radix_partition": partition_kernel.launches}
+    return {name: wrapper.launches for name, wrapper in _counters().items()}
 
 
 # ---------------------------------------------------------------------------------------
@@ -600,6 +777,193 @@ def phase_multipass(work, paths, report, batches):
     return out
 
 
+# ---------------------------------------------------------------------------------------
+# phase 6: count / probe / resumable count, and length buckets, at phase 4's width
+# ---------------------------------------------------------------------------------------
+
+CKPT_ACCUM = 4  # the resumable count's window: four flushes a sample, a cursor after each
+
+
+def run_counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before; (result, wall s, launches)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_launches()
+
+
+def _cli(argv):
+    from denovo_kmer_tpu_torch import cli
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"CLI {argv[0]} exited {rc}")
+    return out.getvalue()
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return z["keys"], z["counts"], json.loads(bytes(z["meta"]).decode())
+
+
+def _kmer_str(codes):
+    return np.frombuffer(b"ACGT", np.uint8)[np.asarray(codes)].tobytes().decode()
+
+
+def phase_checkpoints(rng, work, main):
+    """`count` both parents to .npz through the CLI; a resumable count stopped after its
+    first saved cursor and resumed equals the uninterrupted one; run_trio with both .npz
+    parents equals phase 4's report; `probe` of 1,000 k-mers prints the counts of the numpy
+    reference."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.pipeline import run_trio
+    from denovo_kmer_tpu_torch.utils import checkpoint
+
+    paths, ref = main["paths"], main["ref"]
+    cfg = EngineConfig(**MAIN_CFG)
+    flags = ["-k", str(K), "--max-read-len", str(cfg.max_read_len), "--batch-reads",
+             str(cfg.batch_reads), "--table-capacity", str(cfg.table_capacity), "--device",
+             "cuda"]
+    batches = main["batches"] // 3
+    out, npz = {}, {}
+    for name in ("mom", "dad"):
+        npz[name] = os.path.join(work, f"{name}.npz")
+        _, wall, launches = run_counted(lambda: _cli(
+            ["count", paths[name], "-o", npz[name], "--accum-batches",
+             str(cfg.accum_batches), *flags]))
+        if launches["extract_kmers"] != batches:
+            raise AssertionError(f"count {name}: {launches} for {batches} batches")
+        keys, counts, meta = _npz(npz[name])
+        vals = (keys[:, 0].astype(np.uint64) << np.uint64(32)) | keys[:, 1].astype(np.uint64)
+        if not (np.array_equal(vals, ref[name][0]) and np.array_equal(counts, ref[name][1])):
+            raise AssertionError(f"count {name}: the table differs from the numpy reference")
+        out[f"count_{name}"] = {"wall_s": wall, "n": meta["n"], "launches": launches,
+                                "npz_bytes": os.path.getsize(npz[name])}
+
+    # the resumable count, stopped right after its first cursor is saved, then resumed
+    class Stop(Exception):
+        pass
+
+    resumed = os.path.join(work, "mom_resumed.npz")
+    argv = ["count", paths["mom"], "-o", resumed, "--resume", "--ckpt-every", "1",
+            "--accum-batches", str(CKPT_ACCUM), *flags]
+    real_save, saved = checkpoint.save_resume, []
+
+    def stop_after_first(path, table, c, cursor, done):
+        real_save(path, table, c, cursor, done)
+        saved.append(cursor)
+        if not done:
+            raise Stop()
+
+    checkpoint.save_resume = stop_after_first
+    reset_launches()
+    try:
+        _cli(argv)
+        raise AssertionError("the interrupted count ran to its end")
+    except Stop:
+        pass
+    finally:
+        checkpoint.save_resume = real_save
+    launches_1 = read_launches()
+    _, wall_2, launches_2 = run_counted(lambda: _cli(argv))
+    if launches_1["extract_kmers"] + launches_2["extract_kmers"] != batches \
+            or launches_2["extract_kmers"] == 0:
+        raise AssertionError(f"resumed count launches {launches_1} + {launches_2} != "
+                             f"{batches} batches")
+    got, want = _npz(resumed), _npz(npz["mom"])
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])) \
+            or {**got[2], "source": None} != {**want[2], "source": None}:
+        raise AssertionError("the resumed count differs from the uninterrupted one")
+    out["count_resumed"] = {"cursor": saved[0], "launches_before_stop": launches_1,
+                            "launches_resumed": launches_2, "resumed_wall_s": wall_2}
+
+    # run_trio with both checkpoints as parents
+    res, wall, launches = run_counted(lambda: run_trio(npz["mom"], npz["dad"],
+                                                       paths["child"], cfg, device="cuda"))
+    if res.report != main["report"]:
+        raise AssertionError("run_trio with .npz parents: report differs from phase 4's")
+    if launches["extract_kmers"] != batches:
+        raise AssertionError(f"run_trio with .npz parents launched {launches}")
+    out["run_trio_npz"] = {"wall_s": wall, "launches": launches,
+                           "feed_wait_s": res.metrics.seconds.get("feed_wait", 0.0)}
+
+    # probe: the candidates and random parental k-mers, through the CLI, on both tables
+    cands = [line.split("\t")[0] for line in main["report"].splitlines()[1:]][:500]
+    _, _, codes = main["samples"]["mom"]
+    rows = rng.integers(0, codes.shape[0], 1000 - len(cands))
+    starts = rng.integers(0, READ_LEN - K + 1, rows.shape[0])
+    kmers = cands + [_kmer_str(codes[r, st:st + K]) for r, st in zip(rows, starts)]
+    values = [canonical_of(b"ACGT".index(ch) for ch in s_.encode()) for s_ in kmers]
+    for name in ("mom", "dad"):
+        t0 = time.perf_counter()
+        text = _cli(["probe", npz[name], "--kmers", ",".join(kmers), *flags])
+        wall = time.perf_counter() - t0
+        rk, rc = ref[name][0], ref[name][1]
+        idx = np.searchsorted(rk, np.asarray(values, np.uint64))
+        hit = (idx < len(rk)) & (rk[np.minimum(idx, len(rk) - 1)] == np.asarray(values,
+                                                                             np.uint64))
+        expect = "".join(f"{s_}\t{int(rc[i]) if h else 0}\n"
+                         for s_, i, h in zip(kmers, idx, hit))
+        if text != expect:
+            raise AssertionError(f"probe {name}: counts differ from the numpy reference")
+        out[f"probe_{name}"] = {"kmers": len(kmers), "present": int(hit.sum()),
+                                "wall_s": wall}
+    emit({"phase": "checkpoints", **out})
+    return out
+
+
+def phase_buckets(rng, work, main):
+    """A mixed-length trio from phase 4's reads (each trimmed to 60-151 bp): run_trio,
+    the device-store spill and the 2-pass re-decode with read_len_buckets BUCKETS each equal
+    the unbucketed run_trio on the same BAMs."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.pipeline import run_trio, run_trio_multipass, run_trio_spill
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    t0 = time.perf_counter()
+    paths, bases = write_mixed_trio(rng, os.path.join(work, "mixed"), samples=main["samples"])
+    bam_s = time.perf_counter() - t0
+    plain = EngineConfig(**MAIN_CFG)
+    buck = dataclasses.replace(plain, read_len_buckets=BUCKETS)
+    trio = (paths["mom"], paths["dad"], paths["child"])
+    runs = [
+        ("run_trio", plain, lambda c, m: run_trio(*trio, c, m, device="cuda")),
+        ("run_trio_bucketed", buck, lambda c, m: run_trio(*trio, c, m, device="cuda")),
+        ("spill_store_bucketed", buck, lambda c, m: run_trio_spill(
+            *trio, c, SPILL_PASSES, device_store_rows=STORE_ROWS, metrics=m,
+            device="cuda")),
+        ("multipass_bucketed", buck, lambda c, m: run_trio_multipass(*trio, c, 2, m,
+                                                                     device="cuda")),
+    ]
+    out, report = {}, None
+    for name, cfg, fn in runs:
+        m = Metrics()
+        res, wall, launches = run_counted(lambda: fn(cfg, m))
+        if report is None:
+            report = res.report
+            if not res.candidates:
+                raise AssertionError("no candidates on the mixed-length trio")
+        elif res.report != report:
+            raise AssertionError(f"{name}: report differs from the unbucketed run_trio's")
+        if launches["extract_kmers"] != m.counters["batches"] or launches["extract_kmers"] == 0:
+            raise AssertionError(f"{name}: extract_kmers launched {launches['extract_kmers']} "
+                                 f"times for {m.counters['batches']} batches")
+        if (launches["radix_partition"] > 0) != name.startswith("spill"):
+            raise AssertionError(f"{name}: radix_partition launched "
+                                 f"{launches['radix_partition']} times")
+        out[name] = {"wall_s": wall, "launches": launches, "batches": m.counters["batches"],
+                     "kmers_extracted": m.counters["kmers_extracted"],
+                     **{f"{k}_s": v for k, v in sorted(m.seconds.items())}}
+    emit({"phase": "buckets", "buckets": list(BUCKETS), "bases": bases, "bam_write_s": bam_s,
+          "candidates": report.count("\n") - 1, **out})
+    return out
+
+
 def device_time(prof, trace_path, wall_s):
     """Device activity of a profiled run, from its Chrome trace: busy seconds (the union of
     every kernel, copy and memset interval), summed seconds by kind and for the costliest
@@ -641,6 +1005,20 @@ def device_time(prof, trace_path, wall_s):
             "top_kernels_s": dict(top)}
 
 
+def phase_feeder():
+    """Build the C++ BAM feeder (g++, zlib) on this host: phase 4 requires it."""
+    from denovo_kmer_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    ok = native.native_available()
+    out = {"phase": "feeder", "native": ok, "build_error": native.native_build_error(),
+           "seconds": time.perf_counter() - t0,
+           "threads": os.environ.get("DENOVO_KMER_INGEST_THREADS", "4 (default)")}
+    emit(out)
+    if not ok:
+        raise AssertionError(f"the C++ BAM feeder did not build: {out['build_error']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -658,25 +1036,35 @@ def main() -> int:
     t0 = time.perf_counter()
     load_all(KERNELS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": KERNELS})
+    phase_feeder()
 
     rng = np.random.default_rng(args.seed)
     cases, worst = phase_kernels(rng)
     part_cases = phase_partition()
-    block_sort = phase_block_sort_library()
+    sort_case = phase_block_sort()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
     try:
         phase_parity(work)
-        paths, report, batches = phase_main(rng, work)
-        multipass = phase_multipass(work, paths, report, batches)
+        phase_parity_buckets(work)
+        main_run = phase_main(rng, work)
+        multipass = phase_multipass(work, main_run["paths"], main_run["report"],
+                                    main_run["batches"])
+        ckpt = phase_checkpoints(rng, work, main_run)
+        buckets = phase_buckets(rng, work, main_run)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    main_case = next(c for c in cases if c["k"] == K and c["canonical"]
-                     and c["feed"] == "lengths" and "n_passes" not in c)
-    vw_case = next(c for c in cases if c["k"] == K and c["canonical"]
-                   and c["feed"] == "vwords" and "n_passes" not in c)
+    main_case = next(c for c in cases if c["k"] == K and c["canonical"] and c["max_read_len"]
+                     == 160 and c["feed"] == "lengths" and "n_passes" not in c)
+    vw_case = next(c for c in cases if c["k"] == K and c["canonical"] and c["max_read_len"]
+                   == 160 and c["feed"] == "vwords" and "n_passes" not in c)
     spill_case = part_cases[0]
     launches = multipass["spill_store"]["launches"]
+    by_path = {"run_trio": main_run["launches"],
+               **{name: r["launches"] for name, r in multipass.items()},
+               **{name: r["launches"] for name, r in buckets.items()},
+               "run_trio_npz": ckpt["run_trio_npz"]["launches"],
+               "count_mom": ckpt["count_mom"]["launches"]}
     emit({"kernels": [{
         "name": "extract_kmers", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",
@@ -688,8 +1076,10 @@ def main() -> int:
         "library_ms": None,
         "ms_vwords_feed": vw_case["ms"], "plain_ms_vwords_feed": vw_case["plain_ms"],
         "bound_ms_vwords_feed": vw_case["bound_ms"],
-        "launches_by_path": {name: r["launches"]["extract_kmers"]
-                             for name, r in multipass.items()},
+        "ms_by_bucket_width": {c["max_read_len"]: c["ms"] for c in cases
+                               if c["k"] == K and c["canonical"] and c["feed"] == "lengths"
+                               and "n_passes" not in c},
+        "launches_by_path": {name: v["extract_kmers"] for name, v in by_path.items()},
         "shape": "B=16384 max_read_len=160 k=31 canonical"}, {
         "name": "radix_partition", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/radix_partition.cu",
@@ -699,13 +1089,20 @@ def main() -> int:
         "ms": spill_case["ms"], "plain_ms": spill_case["plain_ms"],
         "bound_ms": spill_case["bound_ms"], "bound_by": spill_case["bound_by"],
         "library_ms": spill_case["library_ms"],
-        "launches_by_path": {name: r["launches"]["radix_partition"]
-                             for name, r in multipass.items()},
-        "shape": f"N={spill_case['N']} C=2 n_buckets=5 block_lanes=32768 (spill window)"}],
-        "unported": [{"name": "pallas_block_sort",
-                      "replaces": "benchmarks/micro_pallas_sort.py:79",
-                      "library_ms": block_sort["library_ms"],
-                      "bound_ms": block_sort["bound_ms"], "bound_by": "bytes"}]})
+        "launches_by_path": {name: v["radix_partition"] for name, v in by_path.items()},
+        "shape": f"N={spill_case['N']} C=2 n_buckets=5 block_lanes=32768 (spill window)"}, {
+        "name": "block_sort", "route": "cuda",
+        "source": "denovo_kmer_tpu_torch/csrc/block_sort.cu",
+        "replaces": "benchmarks/micro_pallas_sort.py:73",
+        "launches": launches["block_sort"],
+        "max_abs_err": max([sort_case["max_abs_err"]]
+                           + [c["max_abs_err"] for c in sort_case["edge_cases"]]),
+        "ms": sort_case["ms"], "plain_ms": sort_case["plain_ms"],
+        "bound_ms": sort_case["bound_ms"], "bound_by": sort_case["bound_by"],
+        "library_ms": sort_case["library_ms"],
+        "launches_by_path": {name: v["block_sort"] for name, v in by_path.items()},
+        "shape": "keys, pays (2^22, 128) u32, 2048-row blocks (a probe: no path calls it)"}],
+        "unported": []})
     emit({"phase": "end", "seconds": time.perf_counter() - t_start})
     print(power_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,17 @@ Subcommands (the same flags and output as ``python -m denovo_kmer_tpu``):
     call        full trio workflow (index parents, score child, report). ``--passes N``
                 splits the key space into N hash passes: alone it re-decodes the reads
                 every pass; with ``--spill DIR`` (host files, resumable) or ``--spill-rows
-                N`` (a device store of N rows a pass) it decodes once and spills
+                N`` (a device store of N rows a pass) it decodes once and spills. A parent
+                given as a ``count`` checkpoint (``.npz``) is loaded, not built
+    count       build one sample's table and save it as an ``.npz`` checkpoint
+                (``--resume``: mid-pass resume from ``<output>.resume.npz``)
+    probe       query k-mer counts in a ``count`` checkpoint (``--kmers`` or stdin)
     synth-trio  generate a deterministic synthetic trio (test/bench fixture)
 
-Flags of paths not ported yet (mesh, regions, evidence, sites, length buckets, profiling)
-exit non-zero and name ROADMAP.md.
+``--read-len-buckets 64,112,160`` packs and extracts each read at the smallest width that
+holds it; ``--ingest-threads N`` sets the C++ BAM feeder's decode threads. Flags of paths
+not ported yet (mesh, regions, evidence, sites, profiling) exit non-zero and name
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -65,7 +71,9 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
     e.add_argument("--mesh", type=_mesh_shape, default=(1, 1),
                    help=f"mesh shape READSxTABLE (multi-device: {_NOT_YET})")
     e.add_argument("--read-len-buckets", default=None,
-                   help=f"comma list of ascending padded read widths ({_NOT_YET})")
+                   help="comma list of ascending padded read widths (last = "
+                        "--max-read-len), e.g. 64,112,160: mixed-length inputs skip "
+                        "padding waste (bit-identical results)")
     e.add_argument("--accum-batches", default="32",
                    help="batches staged per accumulation window before a flush. Integer, "
                         "or 'auto' to size from the device's memory (CLI default 32; the "
@@ -90,7 +98,8 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
     e.add_argument("--output-format", choices=("tsv", "fasta"), default="tsv",
                    help="candidate report format (tsv is the parity artifact)")
     e.add_argument("--ingest-threads", type=int, default=None,
-                   help=f"decode worker threads of the native feeder ({_NOT_YET})")
+                   help="decode worker threads of the C++ BAM feeder (BGZF inflate ring; "
+                        "default 4; 0 = synchronous; also via DENOVO_KMER_INGEST_THREADS)")
     e.add_argument("--json-metrics", action="store_true")
     e.add_argument("--profile-dir", type=str, default=None,
                    help=f"write a profiler trace here ({_NOT_YET})")
@@ -103,8 +112,6 @@ def _reject_unported(args) -> None:
         ("--mesh", tuple(getattr(args, "mesh", (1, 1))) != (1, 1)),
         ("--region", getattr(args, "region", None) is not None),
         ("--regions-bed", getattr(args, "regions_bed", None) is not None),
-        ("--read-len-buckets", getattr(args, "read_len_buckets", None) is not None),
-        ("--ingest-threads", getattr(args, "ingest_threads", None) is not None),
         ("--profile-dir", getattr(args, "profile_dir", None) is not None),
         ("--evidence-out", getattr(args, "evidence_out", None) is not None),
         ("--sites-out", getattr(args, "sites_out", None) is not None),
@@ -137,6 +144,8 @@ def _accum_kwargs(args) -> dict:
 
 
 def _cfg_from_args(args) -> EngineConfig:
+    if getattr(args, "ingest_threads", None) is not None:
+        os.environ["DENOVO_KMER_INGEST_THREADS"] = str(args.ingest_threads)
     return EngineConfig(
         k=args.kmer_size,
         canonical=not args.no_canonical,
@@ -147,6 +156,8 @@ def _cfg_from_args(args) -> EngineConfig:
         batch_reads=args.batch_reads,
         max_read_len=args.max_read_len,
         table_capacity=args.table_capacity,
+        read_len_buckets=(tuple(int(x) for x in args.read_len_buckets.split(","))
+                          if getattr(args, "read_len_buckets", None) else None),
         mesh_shape=tuple(args.mesh),
         reference_fasta=args.reference,
         extractor=args.extractor,
@@ -165,6 +176,15 @@ def _check_multipass_flags(args) -> None:
                          "the spill IS the multipass partition")
     if args.spill is not None and args.spill_rows is not None:
         raise SystemExit("--spill DIR and --spill-rows are exclusive")
+
+
+def _reject_multipass_flags(args) -> None:
+    """`call`-only multipass and spill flags on another subcommand exit non-zero: silently
+    ignoring --spill would leave a user believing the single-decode multipass ran."""
+    if getattr(args, "passes", 1) > 1:
+        raise SystemExit("--passes is only supported by `call` (single-chip WGS path)")
+    if getattr(args, "spill", None) or getattr(args, "spill_rows", None) is not None:
+        raise SystemExit("--spill/--spill-rows are only supported by `call`")
 
 
 def cmd_call(args) -> int:
@@ -203,6 +223,68 @@ def cmd_call(args) -> int:
         f"child={result.tables_n['child']})",
         file=sys.stderr,
     )
+    return 0
+
+
+def cmd_count(args) -> int:
+    from denovo_kmer_tpu_torch.pipeline import build_sample_table, build_sample_table_resumable
+    from denovo_kmer_tpu_torch.utils.checkpoint import save_table
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    _reject_unported(args)
+    cfg = _cfg_from_args(args)
+    metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
+    _reject_multipass_flags(args)
+    with metrics.timer("build"):
+        if args.resume:
+            if not args.reads.lower().endswith(".bam"):
+                raise SystemExit("--resume needs a BAM input (virtual-offset cursor)")
+            table = build_sample_table_resumable(
+                args.reads, cfg, args.output + ".resume.npz", metrics,
+                save_every_flushes=args.ckpt_every, device=args.device)
+        else:
+            table = build_sample_table(args.reads, cfg, metrics, device=args.device)
+    save_table(args.output, table, cfg, source=args.reads)
+    print(metrics.summary(), file=sys.stderr)
+    print(f"unique k-mers: {int(table.n)} -> {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_probe(args) -> int:
+    """Query k-mers against a persisted table (the `jellyfish query` analog): k-mers come
+    from --kmers (comma-separated) or stdin (one per line); prints `kmer<TAB>count`."""
+    import torch
+
+    from denovo_kmer_tpu_torch.ops.table import probe_table
+    from denovo_kmer_tpu_torch.oracle.scalar import (
+        canonical_value,
+        encode_kmer,
+        kmer_value_to_words,
+    )
+    from denovo_kmer_tpu_torch.pipeline import resolve_device
+    from denovo_kmer_tpu_torch.utils.checkpoint import load_table
+
+    _reject_unported(args)
+    cfg = _cfg_from_args(args)
+    dev = resolve_device(args.device)
+    table = load_table(args.table, cfg, device=dev)
+    if args.kmers:
+        kmer_strs = [s.strip().upper() for s in args.kmers.split(",") if s.strip()]
+    else:
+        kmer_strs = [line.strip().upper() for line in sys.stdin if line.strip()]
+    if not kmer_strs:
+        raise SystemExit("no k-mers to query (use --kmers or pipe one per line)")
+    words = []
+    for s in kmer_strs:
+        if len(s) != cfg.k:
+            raise SystemExit(f"k-mer {s!r} has length {len(s)}, expected k={cfg.k}")
+        v = encode_kmer(s)
+        if cfg.canonical:
+            v = canonical_value(v, cfg.k)
+        words.append(kmer_value_to_words(v, cfg.k))
+    counts = probe_table(table, torch.tensor(words, dtype=torch.int64, device=dev)).cpu()
+    for s, c in zip(kmer_strs, counts.tolist()):
+        print(f"{s}\t{int(c)}")
     return 0
 
 
@@ -255,6 +337,23 @@ def main(argv=None) -> int:
     pc.add_argument("--sites-out", default=None, help=f"per-site TSV ({_NOT_YET})")
     _add_engine_args(pc)
     pc.set_defaults(fn=cmd_call)
+
+    pk = sub.add_parser("count", help="build and persist one sample's k-mer table")
+    pk.add_argument("reads")
+    pk.add_argument("-o", "--output", required=True)
+    pk.add_argument("--resume", action="store_true",
+                    help="mid-pass resume via <output>.resume.npz (table + BAM cursor)")
+    pk.add_argument("--ckpt-every", type=int, default=4,
+                    help="flushes between resume checkpoints (default %(default)s)")
+    _add_engine_args(pk)
+    pk.set_defaults(fn=cmd_count)
+
+    pq = sub.add_parser("probe", help="query k-mer counts in a `count` table checkpoint")
+    pq.add_argument("table", help="table checkpoint (.npz from `count`)")
+    pq.add_argument("--kmers", default=None,
+                    help="comma-separated k-mers (default: read one per line from stdin)")
+    _add_engine_args(pq)
+    pq.set_defaults(fn=cmd_probe)
 
     ps = sub.add_parser("synth-trio", help="generate a synthetic trio fixture")
     ps.add_argument("outdir")

@@ -58,8 +58,8 @@ class EngineConfig:
     #: padded read length (bases); reads longer than this are truncated (config error in
     #: practice — pick >= max read length of the input)
     max_read_len: int = 160
-    #: OPTIONAL length bucketing: ascending padded widths, last == max_read_len. Kept so
-    #: configs match the JAX package; the port's pipeline does not bucket yet (ROADMAP.md).
+    #: OPTIONAL length bucketing: ascending padded widths, last == max_read_len; each read is
+    #: packed and extracted at the smallest width that holds it (pipeline.py)
     read_len_buckets: Optional[Tuple[int, ...]] = None
 
     # --- table sizing ---

@@ -128,16 +128,43 @@ def prefetch_batches(batches: Iterable[T], depth: int = 2,
 _LEAKED_PRODUCERS: list = []
 
 
-def _place(packed: PackedReads, put: Callable, ship_lengths: bool = False) -> PackedReads:
-    """A copy of ``packed`` whose ``words`` and ``vwords`` are tensors on the device.
+def close_unless_leaked(stream, stats: dict) -> None:
+    """Close ``stream`` unless ``stats`` (the dict passed to the prefetch over it) recorded a
+    leaked producer thread: that thread may still be inside the stream's decode, and closing
+    it underneath would be a use-after-free; the handle is leaked with the thread."""
+    if stats and stats.get("producer_leaked"):
+        print("denovo-kmer-prefetch: leaving stream open (leaked producer thread may still "
+              "hold it)", file=sys.stderr)
+        return
+    stream.close()
+
+
+def _place_item(item, put: Callable, ship_lengths: bool = False):
+    """Replace every PackedReads in ``item`` (bare, or inside a tuple such as
+    ``(bucket_width, packed)`` or ``(packed, cursor)``) with a copy whose ``words`` and
+    ``vwords`` are tensors on the device; anything else passes through.
 
     ``ship_lengths``: prefix-valid batches (no Ns, no quality masking — the common case)
     transfer (B,) lengths instead of (B, Lp/32) vwords and arrive with ``vwords=None``."""
-    if ship_lengths and packed.prefix_valid:
-        return dataclasses.replace(
-            packed, words=put(packed.words), vwords=None, length=put(packed.length)
-        )
-    return dataclasses.replace(packed, words=put(packed.words), vwords=put(packed.vwords))
+    if isinstance(item, PackedReads):
+        if ship_lengths and item.prefix_valid:
+            return dataclasses.replace(
+                item, words=put(item.words), vwords=None, length=put(item.length)
+            )
+        return dataclasses.replace(item, words=put(item.words), vwords=put(item.vwords))
+    if isinstance(item, tuple):
+        return tuple(_place_item(x, put, ship_lengths) for x in item)
+    return item
+
+
+def _placed_tensors(item) -> Iterator[torch.Tensor]:
+    if isinstance(item, PackedReads):
+        for t in (item.words, item.vwords, item.length):
+            if isinstance(t, torch.Tensor):
+                yield t
+    elif isinstance(item, tuple):
+        for x in item:
+            yield from _placed_tensors(x)
 
 
 def as_int32_tensor(a: np.ndarray) -> torch.Tensor:
@@ -150,13 +177,18 @@ def as_int32_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def prefetch_placed(batches: Iterable[PackedReads], device, depth: int = 2,
+def prefetch_placed(batches: Iterable[T], device, depth: int = 2,
                     decode_depth: int = 2, ship_lengths: bool = False,
-                    stats: dict = None) -> Iterator[PackedReads]:
+                    stats: dict = None) -> Iterator[T]:
     """Three-thread host→device pipeline: decode/pack on one daemon thread, host→device
-    transfer on a second (a side CUDA stream), compute dispatch on the caller's thread."""
+    transfer on a second (a side CUDA stream), compute dispatch on the caller's thread.
+    Items are PackedReads, bare or inside tuples (``_place_item``).
+
+    ``stats`` track the consumer-facing stage; a leaked decode thread (the one inside the
+    caller's stream) is reported there too, for ``close_unless_leaked``."""
     device = torch.device(device)
-    inner = prefetch_batches(batches, depth=decode_depth)
+    inner_stats: dict = {}
+    inner = prefetch_batches(batches, depth=decode_depth, stats=inner_stats)
     if device.type == "cuda":
         side = torch.cuda.Stream(device=device)
 
@@ -166,24 +198,23 @@ def prefetch_placed(batches: Iterable[PackedReads], device, depth: int = 2,
                 return host.to(device, non_blocking=True)
 
         def place(b):
-            placed = _place(b, put, ship_lengths)
+            placed = _place_item(b, put, ship_lengths)
             ready = torch.cuda.Event()
             ready.record(side)
             return placed, ready
     else:
         def place(b):
-            return _place(b, as_int32_tensor, ship_lengths), None
+            return _place_item(b, as_int32_tensor, ship_lengths), None
 
     outer = prefetch_batches((place(b) for b in inner), depth=depth, stats=stats)
     try:
-        for packed, ready in outer:
+        for item, ready in outer:
             if ready is not None:
                 consumer = torch.cuda.current_stream(device)
                 consumer.wait_event(ready)
-                for t in (packed.words, packed.vwords, packed.length):
-                    if isinstance(t, torch.Tensor):
-                        t.record_stream(consumer)
-            yield packed
+                for t in _placed_tensors(item):
+                    t.record_stream(consumer)
+            yield item
     finally:
         # close the transfer stage first (its finally joins the transfer thread), then
         # the decode stage — only then may the caller close the input stream underneath
@@ -192,3 +223,5 @@ def prefetch_placed(batches: Iterable[PackedReads], device, depth: int = 2,
             inner.close()
         except ValueError:  # transfer-thread join timed out mid-iteration
             pass
+        if stats is not None and inner_stats.get("producer_leaked"):
+            stats["producer_leaked"] = True

@@ -1,7 +1,8 @@
 """Host-side 2-bit packing: read records → fixed-width batch arrays (numpy).
 
-A copy of ``PackedReads``, ``padded_length``, ``pack_seqs``, ``_pack_codes`` and
-``pack_records`` from ``denovo_kmer_tpu/ops/pack.py``, with the same layout.
+A copy of ``PackedReads``, ``padded_length``, ``pack_seqs``, ``_pack_codes``,
+``pack_records`` and ``pack_records_bucketed`` from ``denovo_kmer_tpu/ops/pack.py``, with the
+same layout.
 
 Layout (per batch of B reads, padded length Lp = ceil(max_read_len/32)*32):
 - ``words``  (B, Lp//16) uint32 — base j of read i sits in word j//16, bits 2*(j%16)..+1 (LSB-first)
@@ -13,7 +14,7 @@ Layout (per batch of B reads, padded length Lp = ceil(max_read_len/32)*32):
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Iterator, List, Optional, Sequence
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -131,3 +132,35 @@ def pack_records(
             seqs, quals = [], []
     if seqs:
         yield pack_seqs(seqs, cfg, quals, batch_size=cfg.batch_reads)
+
+
+def pack_records_bucketed(
+    records: Iterable,
+    cfg: EngineConfig,
+) -> Iterator[Tuple[int, PackedReads]]:
+    """Length-bucketed packing (cfg.read_len_buckets): yield (bucket_width, PackedReads) with
+    each read packed at the smallest bucket that holds it, so extraction runs
+    width-proportional work per bucket instead of padding every read to max_read_len. Reads
+    longer than the last bucket truncate to it (as plain packing does). Remainder batches
+    flush per bucket at the end of the stream."""
+    buckets = tuple(cfg.read_len_buckets or (cfg.max_read_len,))
+    cfgs = {w: dataclasses.replace(cfg, max_read_len=w, read_len_buckets=None)
+            for w in buckets}
+    pend: Dict[int, Tuple[List[str], List[Optional[Sequence[int]]]]] = {
+        w: ([], []) for w in buckets
+    }
+    for rec in records:
+        if rec.flag & cfg.filter_flag_mask:
+            continue
+        L = len(rec.seq)
+        w = next((b for b in buckets if L <= b), buckets[-1])
+        seqs, quals = pend[w]
+        seqs.append(rec.seq)
+        quals.append(rec.qual)
+        if len(seqs) == cfg.batch_reads:
+            yield w, pack_seqs(seqs, cfgs[w], quals, batch_size=cfg.batch_reads)
+            pend[w] = ([], [])
+    for w in buckets:
+        seqs, quals = pend[w]
+        if seqs:
+            yield w, pack_seqs(seqs, cfgs[w], quals, batch_size=cfg.batch_reads)

@@ -8,6 +8,12 @@ runs the fused one-sort call; only the candidate set crosses back to the host fo
 ``run_trio_multipass`` runs that once per hash pass with the pass filter in the extraction
 kernel; ``run_trio_spill`` decodes once, partitions each staging window by pass with the
 partition kernel into a device store or host files, and counts each pass from its spill.
+Every trio path takes ``count`` checkpoints (``.npz``) as parents where the JAX package does,
+and length buckets (``cfg.read_len_buckets``: each read packed, and extracted, at the
+smallest bucket width that holds it). ``build_sample_table_resumable`` persists the running
+table with the BAM virtual-offset cursor so that a killed ``count`` resumes where it stopped.
+Plain local BAMs are decoded by the C++ feeder (``io/native.py``) when it builds, else in
+Python; the batches are the same.
 
 Entry points run on the card unless the caller asks for the CPU (``device="cpu"``).
 """
@@ -15,6 +21,7 @@ Entry points run on the card unless the caller asks for the CPU (``device="cpu"`
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -24,10 +31,10 @@ import torch
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.io.bam import read_bam_records
 from denovo_kmer_tpu_torch.io.fasta import read_fasta, read_fastq
-from denovo_kmer_tpu_torch.io.prefetch import prefetch_placed
+from denovo_kmer_tpu_torch.io.prefetch import close_unless_leaked, prefetch_placed
 from denovo_kmer_tpu_torch.ops.extract import extract_append as _extract_append
 from denovo_kmer_tpu_torch.ops.fused import fused_call_full, fused_supported
-from denovo_kmer_tpu_torch.ops.pack import PackedReads, pack_records
+from denovo_kmer_tpu_torch.ops.pack import PackedReads, pack_records, pack_records_bucketed
 from denovo_kmer_tpu_torch.ops.partition import MAX_SPILL_BUCKETS
 from denovo_kmer_tpu_torch.ops.score import (
     ScoreTable,
@@ -36,9 +43,16 @@ from denovo_kmer_tpu_torch.ops.score import (
     seed_score_table,
 )
 from denovo_kmer_tpu_torch.ops.stream import empty_accumulator, flush
-from denovo_kmer_tpu_torch.ops.table import KmerTable, empty_table
+from denovo_kmer_tpu_torch.ops.table import (
+    KmerTable,
+    empty_table,
+    table_from_numpy,
+    table_to_numpy,
+)
 from denovo_kmer_tpu_torch.ops.trio import Candidates
 from denovo_kmer_tpu_torch.oracle.scalar import words_to_kmer_value
+from denovo_kmer_tpu_torch.parallel.router import pass_of
+from denovo_kmer_tpu_torch.utils.checkpoint import maybe_load_flat_table
 from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
 _BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -148,9 +162,8 @@ def make_ingest_step(cfg: EngineConfig, n_passes: int = 1):
     (``vwords is None``) or with its validity words. ``n_passes > 1``: only k-mers whose
     ``router.pass_of`` bucket is ``pass_id`` stay valid (the multipass filter, fused into
     the extraction kernel). The JAX package's ``extractor`` field picks a TPU layout; here
-    every value runs the same CUDA kernel."""
-    if cfg.read_len_buckets:
-        raise NotImplementedError(f"read_len_buckets: {_NOT_YET}, item 8")
+    every value runs the same CUDA kernel. The step extracts at ``cfg.max_read_len``
+    (``make_bucketed_extract_steps`` gives one step a bucket width)."""
 
     def append_packed(acc, packed: PackedReads, pass_id: int = 0):
         lengths = packed.length if packed.vwords is None else None
@@ -160,8 +173,83 @@ def make_ingest_step(cfg: EngineConfig, n_passes: int = 1):
     return append_packed
 
 
+def make_bucketed_extract_steps(cfg: EngineConfig, n_passes: int = 1):
+    """One ingest step a bucket width (cfg.read_len_buckets), all appending into the SAME
+    staging buffer: k-mer rows do not depend on the width, so bucketing only changes how
+    many windows each batch stages. The extraction kernel runs at each width's
+    ``max_read_len``."""
+    buckets = tuple(cfg.read_len_buckets or (cfg.max_read_len,))
+    return {
+        w: make_ingest_step(
+            dataclasses.replace(cfg, max_read_len=w, read_len_buckets=None), n_passes)
+        for w in buckets
+    }
+
+
+def _pass_steps(steps, pass_id: int):
+    """The multipass filter of pass ``pass_id`` bound into each of ``steps`` (a dict of
+    bucket steps, or one step)."""
+    if isinstance(steps, dict):
+        return {w: _pass_steps(s, pass_id) for w, s in steps.items()}
+    return lambda acc, packed, _s=steps: _s(acc, packed, pass_id)
+
+
 def _staging_slots(cfg: EngineConfig) -> int:
     return cfg.accum_batches * cfg.batch_reads * cfg.windows_per_read
+
+
+def _bucketed_stream(source, cfg: EngineConfig, region: Optional[str] = None):
+    """(bucket_width, PackedReads) pairs of a reads-file path or a record iterable, packed
+    in Python as the JAX package's bucketed paths do."""
+    if isinstance(source, str):
+        source = _record_stream(source, cfg, region)
+    return pack_records_bucketed(source, cfg)
+
+
+def _fold_stream(items: Iterable, cfg: EngineConfig, steps: dict, acc, state, flush_fn,
+                 m: Metrics, timer: str = "extract_probe", after_flush=None,
+                 final_flush: bool = True):
+    """The LSM fold loop of every streaming build. ``items`` are placed (bucket_width,
+    PackedReads) pairs; an unbucketed stream is the one-width case (``cfg.max_read_len``).
+    ``steps[width]`` appends a batch's windows to the staging buffer ``acc``, and
+    ``flush_fn(acc, state) -> (acc, state)`` folds the staging buffer into ``state`` when the
+    next batch would not fit in it (flushes follow staged windows, since a batch stages
+    width-proportional rows). ``after_flush(state)`` runs after each flush inside the stream,
+    before the next batch is extracted; ``final_flush`` folds what is staged when the stream
+    ends. → (acc, state)."""
+    slots = _staging_slots(cfg)
+    fill = 0
+    for w, packed in items:
+        per_read = max(w - cfg.k + 1, 0)
+        win = cfg.batch_reads * per_read
+        m.count("reads_ingested", packed.n_reads)
+        if fill + win > slots:
+            with m.timer(timer):
+                acc, state = flush_fn(acc, state)
+            fill = 0
+            if after_flush is not None:
+                after_flush(state)
+        with m.timer(timer):
+            acc = steps[w](acc, packed)
+        fill += win
+        m.count("kmers_extracted", packed.n_reads * per_read)
+        m.count("windows_staged", win)
+        m.count("batches", 1)
+    if fill and final_flush:
+        with m.timer(timer):
+            acc, state = flush_fn(acc, state)
+    return acc, state
+
+
+def _placed_items(batches: Iterable, cfg: EngineConfig, device: torch.device, bucket_steps,
+                  append_packed, stats: Optional[dict] = None):
+    """Place a batch stream on ``device`` (prefetched) as ``_fold_stream``'s items, with its
+    steps by width: a bucketed stream (``bucket_steps`` given) as it is, an unbucketed one as
+    the one-width case. → (feed, items, steps); closing ``feed`` stops the prefetch threads."""
+    feed = prefetch_placed(batches, device, ship_lengths=True, stats=stats)
+    if bucket_steps is not None:
+        return feed, feed, bucket_steps
+    return feed, ((cfg.max_read_len, p) for p in feed), {cfg.max_read_len: append_packed}
 
 
 class SampleTableBuilder:
@@ -172,27 +260,19 @@ class SampleTableBuilder:
         self.device = resolve_device(device)
         self.append_packed = append_packed or make_ingest_step(cfg)
 
-    def build(self, packed_batches: Iterable, metrics: Optional[Metrics] = None) -> KmerTable:
+    def build(self, packed_batches: Iterable, metrics: Optional[Metrics] = None,
+              bucket_steps=None) -> KmerTable:
+        """Fold a PackedReads stream into a table; with ``bucket_steps`` the stream holds
+        (bucket_width, PackedReads) pairs (pack_records_bucketed), each extracted by
+        ``bucket_steps[width]``. Bit-identical either way."""
         cfg = self.cfg
         m = metrics or Metrics()
+        feed_stats: dict = {}
+        _, items, steps = _placed_items(packed_batches, cfg, self.device, bucket_steps,
+                                        self.append_packed, feed_stats)
         acc = empty_accumulator(_staging_slots(cfg), cfg.words, self.device)
         table = empty_table(cfg.table_capacity, cfg.words, self.device)
-        pending = 0
-        feed_stats: dict = {}
-        for packed in prefetch_placed(packed_batches, self.device, ship_lengths=True,
-                                      stats=feed_stats):
-            m.count("reads_ingested", packed.n_reads)
-            with m.timer("extract_probe"):
-                acc = self.append_packed(acc, packed)
-                pending += 1
-                if pending == cfg.accum_batches:
-                    acc, table = flush(acc, table)
-                    pending = 0
-            m.count("kmers_extracted", packed.n_reads * cfg.windows_per_read)
-            m.count("batches", 1)
-        if pending:
-            with m.timer("extract_probe"):
-                acc, table = flush(acc, table)
+        _, table = _fold_stream(items, cfg, steps, acc, table, flush, m)
         _report_feed_stats(m, feed_stats)
         n = int(table.n)
         if n > cfg.table_capacity:
@@ -213,44 +293,38 @@ class ScoringTableBuilder:
         self.append_packed = append_packed or make_ingest_step(cfg)
 
     def build_call(self, mom: KmerTable, dad: KmerTable, packed_batches: Iterable,
-                   metrics: Optional[Metrics] = None):
+                   metrics: Optional[Metrics] = None, bucket_steps=None):
         """Stream the child and finish with the fused one-sort flush+call (ops/fused.py).
 
         Returns (Candidates, n_unique, n_child_unique). The scoring table is seeded at a
         tight power-of-two capacity (a sorted table stays valid under truncation to >= n:
         padding sorts last), because every seed row rides every flush sort. Intermediate
         windows use the compacting flush (bounded staging); only the final window skips
-        compaction, so arbitrarily long streams still work.
+        compaction, so arbitrarily long streams still work. With ``bucket_steps`` the
+        stream holds (bucket_width, PackedReads) pairs, extracted by ``bucket_steps[width]``.
         """
         cfg = self.cfg
         m = metrics or Metrics()
-        acc = empty_accumulator(_staging_slots(cfg), cfg.words, self.device)
         seed = seed_score_table(mom, dad, mom.capacity + dad.capacity)
         n_seed = int(seed.n)  # one host sync, before streaming starts
         cap2 = max(1 << (max(n_seed, 1) - 1).bit_length(), 1024)
         if cap2 < seed.capacity:
             seed = ScoreTable(keys=seed.keys[:cap2], counts=seed.counts[:cap2],
                               pcounts=seed.pcounts[:cap2], n=seed.n)
-        table = seed
-        slots = _staging_slots(cfg)
-        win = cfg.batch_reads * cfg.windows_per_read
-        fill = 0
-        flushed = False
+
+        def flush_fn(acc, state):
+            table, flushed = state
+            # the first flush grows the tight seed to the full table capacity
+            acc, table = flush_score(acc, table,
+                                     out_capacity=0 if flushed else cfg.table_capacity)
+            return acc, (table, True)
+
         feed_stats: dict = {}
-        for packed in prefetch_placed(packed_batches, self.device, ship_lengths=True,
-                                      stats=feed_stats):
-            m.count("reads_ingested", packed.n_reads)
-            with m.timer("extract_probe"):
-                if fill + win > slots:
-                    # the first flush grows the tight seed to the full table capacity
-                    acc, table = flush_score(
-                        acc, table, out_capacity=0 if flushed else cfg.table_capacity)
-                    fill = 0
-                    flushed = True
-                acc = self.append_packed(acc, packed)
-                fill += win
-            m.count("kmers_extracted", packed.n_reads * cfg.windows_per_read)
-            m.count("batches", 1)
+        _, items, steps = _placed_items(packed_batches, cfg, self.device, bucket_steps,
+                                        self.append_packed, feed_stats)
+        acc = empty_accumulator(_staging_slots(cfg), cfg.words, self.device)
+        acc, (table, flushed) = _fold_stream(items, cfg, steps, acc, (seed, False), flush_fn,
+                                             m, final_flush=False)
         _report_feed_stats(m, feed_stats)
         if flushed and int(table.n) > cfg.table_capacity:
             raise TableOverflowError(
@@ -272,24 +346,15 @@ class ScoringTableBuilder:
 
     def build(self, mom: KmerTable, dad: KmerTable, packed_batches: Iterable,
               metrics: Optional[Metrics] = None) -> ScoreTable:
+        """The compacting child build (every k; ``run_trio`` takes it where the fused call
+        does not apply) over an unbucketed PackedReads stream."""
         cfg = self.cfg
         m = metrics or Metrics()
+        _, items, steps = _placed_items(packed_batches, cfg, self.device, None,
+                                        self.append_packed)
         acc = empty_accumulator(_staging_slots(cfg), cfg.words, self.device)
         table = seed_score_table(mom, dad, cfg.table_capacity)
-        pending = 0
-        for packed in prefetch_placed(packed_batches, self.device, ship_lengths=True):
-            m.count("reads_ingested", packed.n_reads)
-            with m.timer("extract_probe"):
-                acc = self.append_packed(acc, packed)
-                pending += 1
-                if pending == cfg.accum_batches:
-                    acc, table = flush_score(acc, table)
-                    pending = 0
-            m.count("kmers_extracted", packed.n_reads * cfg.windows_per_read)
-            m.count("batches", 1)
-        if pending:
-            with m.timer("extract_probe"):
-                acc, table = flush_score(acc, table)
+        _, table = _fold_stream(items, cfg, steps, acc, table, flush_score, m)
         n = int(table.n)
         if n > cfg.table_capacity:
             raise TableOverflowError(
@@ -301,9 +366,23 @@ class ScoringTableBuilder:
 def packed_batches(source, cfg: EngineConfig,
                    region: Optional[str] = None) -> Iterator[PackedReads]:
     """PackedReads stream from a reads-file path or an open record iterable, through the
-    pure-Python decoder (the JAX package's C++ feeder comes with a later slice)."""
+    fastest eligible feeder: a plain local BAM with no region takes the C++ decode+pack
+    feeder (``io/native.py``) when it builds; everything else, and every BAM when it does
+    not, the Python record loop. The batches are bit-identical either way."""
     if not isinstance(source, str):
         return pack_records(source, cfg)
+    if region is None and source.lower().endswith(".bam") and "://" not in source:
+        from denovo_kmer_tpu_torch.io import native
+
+        if native.native_available():
+            def gen():
+                feeder = native.NativeBamFeeder(source, cfg)
+                try:
+                    yield from feeder
+                finally:
+                    feeder.close()
+
+            return gen()
     return pack_records(_record_stream(source, cfg, region), cfg)
 
 
@@ -317,9 +396,152 @@ def build_sample_table(
 ) -> KmerTable:
     """Fold a record stream into a k-mer table. Raises TableOverflowError if unique
     k-mers exceed cfg.table_capacity (checked host-side). ``append_packed`` overrides the
-    config's ingest step (a multipass pass's filtered step)."""
-    return SampleTableBuilder(cfg, device, append_packed).build(
-        packed_batches(records, cfg, region), metrics)
+    config's ingest step (a multipass pass's filtered step) and keeps the unbucketed
+    layout; otherwise ``cfg.read_len_buckets`` takes the bucketed build."""
+    builder = SampleTableBuilder(cfg, device, append_packed)
+    if cfg.read_len_buckets and append_packed is None:
+        return builder.build(_bucketed_stream(records, cfg, region), metrics,
+                             make_bucketed_extract_steps(cfg))
+    return builder.build(packed_batches(records, cfg, region), metrics)
+
+
+class _NativeCursorStream:
+    """(PackedReads, virtual offset after the batch) from the C++ feeder."""
+
+    def __init__(self, path: str, cfg: EngineConfig):
+        from denovo_kmer_tpu_torch.io.native import NativeBamFeeder
+
+        self.feeder = NativeBamFeeder(path, cfg)
+
+    def seek(self, voffset: int) -> None:
+        self.feeder.seek_virtual(voffset)
+
+    def close(self) -> None:
+        self.feeder.close()
+
+    def __iter__(self):
+        while True:
+            packed = self.feeder.next_batch()
+            if packed is None:
+                return
+            yield packed, self.feeder.tell_virtual()
+
+
+class _PythonCursorStream:
+    """(PackedReads, virtual offset after the batch) from the Python BAM reader."""
+
+    def __init__(self, path: str, cfg: EngineConfig):
+        from denovo_kmer_tpu_torch.io.bam import BamReader
+
+        self.cfg = cfg
+        self._fh = open(path, "rb")
+        self.reader = BamReader(self._fh)
+
+    def seek(self, voffset: int) -> None:
+        self.reader.seek_virtual(voffset)
+
+    def close(self) -> None:
+        self._fh.close()
+
+    def __iter__(self):
+        from denovo_kmer_tpu_torch.ops.pack import pack_seqs
+
+        cfg = self.cfg
+        while True:
+            seqs, quals = [], []
+            for rec in self.reader:
+                if rec.flag & cfg.filter_flag_mask:
+                    continue
+                seqs.append(rec.seq)
+                quals.append(rec.qual)
+                if len(seqs) == cfg.batch_reads:
+                    break
+            if not seqs:
+                return
+            yield (pack_seqs(seqs, cfg, quals, batch_size=cfg.batch_reads),
+                   self.reader.tell_virtual())
+            if len(seqs) < cfg.batch_reads:
+                return
+
+
+def packed_stream_with_cursor(path: str, cfg: EngineConfig):
+    """(PackedReads, virtual_offset_after_batch) pairs from a BAM, resumable: the returned
+    object has ``.seek(voffset)`` (call before iterating) and ``.close()``. The C++ feeder
+    when it builds, else the Python reader: the same batches and the same offsets."""
+    from denovo_kmer_tpu_torch.io.native import native_available
+
+    if native_available():
+        return _NativeCursorStream(path, cfg)
+    return _PythonCursorStream(path, cfg)
+
+
+def build_sample_table_resumable(
+    path: str,
+    cfg: EngineConfig,
+    resume_path: str,
+    metrics: Optional[Metrics] = None,
+    save_every_flushes: int = 4,
+    device=None,
+) -> KmerTable:
+    """Streaming table build with mid-pass resume.
+
+    Every ``save_every_flushes`` flushes the running table and the BAM virtual-offset
+    cursor go to ``resume_path`` (atomically); a killed run restarted with the same
+    arguments seeks past the reads already folded and continues. Checkpoints are taken only
+    at flush boundaries (empty staging), so the table + cursor pair is exact, and counting
+    does not depend on batch boundaries, so the resumed table is bit-identical. The
+    finished table is saved with ``done`` set; a rerun then just loads it."""
+    from denovo_kmer_tpu_torch.utils.checkpoint import load_resume, save_resume
+
+    dev = resolve_device(device)
+    m = metrics or Metrics()
+    acc = empty_accumulator(_staging_slots(cfg), cfg.words, dev)
+    table = None
+    if os.path.exists(resume_path):
+        table, cursor, done = load_resume(resume_path, cfg, dev)
+        if done:
+            return table
+    stream = packed_stream_with_cursor(path, cfg)
+    if table is None:
+        table = empty_table(cfg.table_capacity, cfg.words, dev)
+    else:
+        stream.seek(cursor)
+        m.event("resume", path=resume_path, cursor=cursor)
+
+    last_cursor = None
+    flushes_since_save = 0
+
+    def batches(feed):
+        nonlocal last_cursor
+        for packed, cursor in feed:
+            yield cfg.max_read_len, packed
+            last_cursor = cursor  # the fold loop has appended this batch
+
+    def save_when_due(table):
+        # a flush inside the stream folded every batch up to ``last_cursor``: table and
+        # cursor are an exact pair
+        nonlocal flushes_since_save
+        flushes_since_save += 1
+        if flushes_since_save >= save_every_flushes:
+            save_resume(resume_path, table, cfg, cursor=last_cursor, done=False)
+            m.event("resume_saved", cursor=last_cursor)
+            flushes_since_save = 0
+
+    feed_stats: dict = {}
+    feed = prefetch_placed(iter(stream), dev, ship_lengths=True, stats=feed_stats)
+    try:
+        _, table = _fold_stream(batches(feed), cfg, {cfg.max_read_len: make_ingest_step(cfg)},
+                                acc, table, flush, m, after_flush=save_when_due)
+    finally:
+        feed.close()  # stop the prefetch threads before closing their input
+        close_unless_leaked(stream, feed_stats)
+    _report_feed_stats(m, feed_stats)
+    n = int(table.n)
+    if n > cfg.table_capacity:
+        raise TableOverflowError(_overflow_msg(n, cfg.table_capacity))
+    save_resume(resume_path, table, cfg, cursor=-1, done=True)
+    m.count("unique_kmers", n)
+    return table
 
 
 def decode_kmers_np(keys: np.ndarray, k: int) -> List[str]:
@@ -353,11 +575,21 @@ def format_report_np(
     return "\n".join(lines) + "\n"
 
 
-def _reject_checkpoints(*paths: str) -> None:
-    for path in paths:
-        if path.lower().endswith(".npz"):
-            raise NotImplementedError(
-                f"`count` table checkpoints ({path}): {_NOT_YET}, item 7")
+def _parent_tables(mom_path: str, dad_path: str, cfg: EngineConfig, m: Metrics,
+                   region: Optional[str], dev: torch.device) -> Dict[str, KmerTable]:
+    """The parents' tables: a `count` checkpoint (``.npz``) loads and skips the parent's
+    pass; reads build (bucketed where the config says so)."""
+    tables = {}
+    for name, path in (("mom", mom_path), ("dad", dad_path)):
+        loaded = maybe_load_flat_table(path, cfg, dev)
+        if loaded is not None:
+            tables[name] = loaded
+            m.event("table_loaded", sample=name, path=path)
+        else:
+            with m.timer(f"build_{name}"):
+                tables[name] = build_sample_table(path, cfg, m, region=region, device=dev)
+        m.event("table_built", sample=name, unique=int(tables[name].n))
+    return tables
 
 
 def run_trio(
@@ -369,29 +601,33 @@ def run_trio(
     region: Optional[str] = None,
     device=None,
 ) -> TrioResult:
-    """Full single-device trio workflow. ``device=None`` runs on the card."""
+    """Full single-device trio workflow. ``device=None`` runs on the card. A parent given as
+    a `count` checkpoint (``.npz``) is loaded instead of built. Length buckets need a k the
+    fused call takes: the compacting child build (``2k % 32 == 0``) has no bucketed variant,
+    and the JAX package's ``run_trio`` fails on that combination too."""
+    if cfg.read_len_buckets and not fused_supported(cfg.k):
+        raise ValueError(f"read_len_buckets with k={cfg.k}: a k whose 2k bits fill whole key "
+                         "words takes the compacting child build, which has no bucketed "
+                         "variant; use another k, or --passes 2 or more")
     dev = resolve_device(device)
     m = metrics or Metrics()
-    tables = {}
-    _reject_checkpoints(mom_path, dad_path)
-    for name, path in (("mom", mom_path), ("dad", dad_path)):
-        with m.timer(f"build_{name}"):
-            tables[name] = build_sample_table(path, cfg, m, region=region, device=dev)
-        m.event("table_built", sample=name, unique=int(tables[name].n))
+    tables = _parent_tables(mom_path, dad_path, cfg, m, region, dev)
 
     # child scoring: parent-seeded path (ops/score.py); when the k geometry allows it the
     # final window runs the one-sort fused flush+call (ops/fused.py) — no compaction
     scorer = ScoringTableBuilder(cfg, dev)
-    child_batches = packed_batches(child_path, cfg, region)
     if fused_supported(cfg.k):
+        bucket_steps = make_bucketed_extract_steps(cfg) if cfg.read_len_buckets else None
+        child_batches = (_bucketed_stream(child_path, cfg, region) if bucket_steps
+                         else packed_batches(child_path, cfg, region))
         with m.timer("build_child"):
             cands, _n_union, child_uniques = scorer.build_call(
-                tables["mom"], tables["dad"], child_batches, m
-            )
+                tables["mom"], tables["dad"], child_batches, m, bucket_steps=bucket_steps)
             n = int(cands.n)
     else:
         with m.timer("build_child"):
-            score_tab = scorer.build(tables["mom"], tables["dad"], child_batches, m)
+            score_tab = scorer.build(tables["mom"], tables["dad"],
+                                     packed_batches(child_path, cfg, region), m)
         child_uniques = int((score_tab.counts >= 1).sum())
         with m.timer("trio_call"):
             cands = call_from_score(score_tab, cfg.tau_parent, cfg.min_child_count)
@@ -400,11 +636,7 @@ def run_trio(
                 "child": child_uniques}
     m.event("table_built", sample="child", unique=child_uniques)
 
-    def host32(t):
-        return t[:n].cpu().numpy().astype(np.uint32)
-
-    keys, cc, mc, dc = (host32(cands.keys), host32(cands.child_counts),
-                        host32(cands.mom_counts), host32(cands.dad_counts))
+    keys, cc, mc, dc = _candidate_parts(cands, n)
     report = format_report_np(keys, cc, mc, dc, cfg.k)
     cand_tuples = [
         (words_to_kmer_value(keys[i]), int(cc[i]), int(mc[i]), int(dc[i]))
@@ -442,6 +674,22 @@ def _merge_pass_results(parts: List[tuple], cfg: EngineConfig, m: Metrics,
     return TrioResult(candidates=cand_tuples, report=report, metrics=m, tables_n=tables_n)
 
 
+def _filter_table_by_pass(table: KmerTable, n_passes: int, pass_id: int) -> KmerTable:
+    """Restrict a full (checkpointed) table to one hash-pass bucket: a host-side compaction
+    (a sorted table's subset stays sorted). Lets `count` checkpoints feed multipass runs."""
+    keys, counts, n = table_to_numpy(table)
+    C, W = keys.shape
+    keys, counts = keys[:n], counts[:n]
+    if n:
+        sel = (pass_of(torch.from_numpy(keys.astype(np.int64)), n_passes) == pass_id).numpy()
+        keys, counts = keys[sel], counts[sel]
+    out_k = np.full((C, W), 0xFFFFFFFF, np.uint32)
+    out_c = np.zeros((C,), np.uint32)
+    out_k[: len(keys)] = keys
+    out_c[: len(keys)] = counts
+    return table_from_numpy(out_k, out_c, len(keys), table.keys.device)
+
+
 def run_trio_multipass(
     mom_path: str,
     dad_path: str,
@@ -459,32 +707,50 @@ def run_trio_multipass(
     filter), so each pass's table holds ~1/n_passes of the uniques and
     ``cfg.table_capacity`` only needs to cover that slice; the streams are re-read every
     pass. The pass partition is a partition of the key space, so the union of per-pass
-    candidates is exactly the single-pass result. ``device=None`` runs on the card."""
+    candidates is exactly the single-pass result. Length buckets compose with passes
+    (per-(width, pass) steps); a `count` checkpoint parent is filtered to each pass's keys.
+    ``device=None`` runs on the card."""
     if n_passes < 2:
         return run_trio(mom_path, dad_path, child_path, cfg, metrics, region, device)
-    _reject_checkpoints(mom_path, dad_path)
     dev = resolve_device(device)
     m = metrics or Metrics()
     step = make_ingest_step(cfg, n_passes)
+    bucket_steps_pp = (make_bucketed_extract_steps(cfg, n_passes)
+                       if cfg.read_len_buckets else None)
+    loaded = {name: maybe_load_flat_table(path, cfg, dev)
+              for name, path in (("mom", mom_path), ("dad", dad_path))}
     parts = []
     tables_n = {"mom": 0, "dad": 0, "child": 0}
     for p in range(n_passes):
-        def pass_step(acc, packed, _p=p):
-            return step(acc, packed, _p)
-
+        pass_step = _pass_steps(step, p)
+        pass_bucket_steps = (_pass_steps(bucket_steps_pp, p)
+                             if bucket_steps_pp is not None else None)
         ptables = {}
         for name, path in (("mom", mom_path), ("dad", dad_path)):
-            with m.timer(f"build_{name}"):
-                ptables[name] = build_sample_table(path, cfg, m, region, dev, pass_step)
+            if loaded[name] is not None:
+                # `count` checkpoints hold the FULL table: slice this pass's keys out
+                ptables[name] = _filter_table_by_pass(loaded[name], n_passes, p)
+            elif pass_bucket_steps is not None:
+                with m.timer(f"build_{name}"):
+                    ptables[name] = SampleTableBuilder(cfg, dev, pass_step).build(
+                        _bucketed_stream(path, cfg, region), m, pass_bucket_steps)
+            else:
+                with m.timer(f"build_{name}"):
+                    ptables[name] = build_sample_table(path, cfg, m, region, dev, pass_step)
             tables_n[name] += int(ptables[name].n)
         scorer = ScoringTableBuilder(cfg, dev, pass_step)
-        child_batches = packed_batches(child_path, cfg, region)
         with m.timer("build_child"):
             if fused_supported(cfg.k):
+                child_batches = (_bucketed_stream(child_path, cfg, region)
+                                 if pass_bucket_steps is not None
+                                 else packed_batches(child_path, cfg, region))
                 cands, _nu, n_child = scorer.build_call(
-                    ptables["mom"], ptables["dad"], child_batches, m)
+                    ptables["mom"], ptables["dad"], child_batches, m,
+                    bucket_steps=pass_bucket_steps)
             else:
-                stab = scorer.build(ptables["mom"], ptables["dad"], child_batches, m)
+                # the compacting fallback (even k) has no bucketed variant
+                stab = scorer.build(ptables["mom"], ptables["dad"],
+                                    packed_batches(child_path, cfg, region), m)
                 n_child = int((stab.counts >= 1).sum())
                 cands = call_from_score(stab, cfg.tau_parent, cfg.min_child_count)
             n = int(cands.n)
@@ -495,38 +761,35 @@ def run_trio_multipass(
 
 
 def _spill_stream(path: str, cfg: EngineConfig, n_passes: int, sink, cap: int, m: Metrics,
-                  device: torch.device, append_packed, region=None) -> int:
+                  device: torch.device, append_packed, region=None, bucket_steps=None) -> int:
     """Decode and extract ``path`` ONCE, partitioning each full staging window by hash
     pass (``ops/spill.partition_window``) and handing (disp, counts) device tensors to
     ``sink``. Returns the total partition overflow (checked by the caller — loud failure,
-    never silent loss)."""
+    never silent loss). With ``bucket_steps`` the stream is length-bucketed, and window
+    fullness is tracked in staged windows, as the bucketed table builds do."""
     from denovo_kmer_tpu_torch.ops.spill import partition_window
 
-    slots = _staging_slots(cfg)
-    acc = empty_accumulator(slots, cfg.words, device)
-    win = cfg.batch_reads * cfg.windows_per_read
-    overflow = torch.zeros((), dtype=torch.int64, device=device)
-    fill = 0
+    def partition(acc, overflow):
+        disp, counts, ovf, acc = partition_window(acc, n_passes, cap)
+        sink(disp, counts)
+        return acc, overflow + ovf
+
+    if bucket_steps is not None:
+        stream = _bucketed_stream(path, cfg, region)
+    else:
+        stream = packed_batches(path, cfg, region)
     feed_stats: dict = {}
-    for packed in prefetch_placed(packed_batches(path, cfg, region), device,
-                                  ship_lengths=True, stats=feed_stats):
-        m.count("reads_ingested", packed.n_reads)
-        with m.timer("extract_spill"):
-            if fill + win > slots:
-                disp, counts, ovf, acc = partition_window(acc, n_passes, cap)
-                overflow = overflow + ovf
-                sink(disp, counts)
-                fill = 0
-            acc = append_packed(acc, packed)
-            fill += win
-        m.count("kmers_extracted", packed.n_reads * cfg.windows_per_read)
-        m.count("batches", 1)
+    feed, items, steps = _placed_items(stream, cfg, device, bucket_steps, append_packed,
+                                       feed_stats)
+    acc = empty_accumulator(_staging_slots(cfg), cfg.words, device)
+    overflow = torch.zeros((), dtype=torch.int64, device=device)
+    try:
+        _, overflow = _fold_stream(items, cfg, steps, acc, overflow, partition, m,
+                                   timer="extract_spill")
+    finally:
+        feed.close()  # stop the prefetch threads before closing their input
+        close_unless_leaked(stream, feed_stats)
     _report_feed_stats(m, feed_stats)
-    if fill:
-        with m.timer("extract_spill"):
-            disp, counts, ovf, acc = partition_window(acc, n_passes, cap)
-            overflow = overflow + ovf
-            sink(disp, counts)
     return int(overflow)
 
 
@@ -548,7 +811,7 @@ def run_trio_spill(
     Where ``run_trio_multipass`` decodes and extracts every stream n_passes times, this
     decodes and extracts each sample once, splits the extracted k-mers into per-pass
     spills with one partition (the partition kernel) per window, and counts each pass from
-    its own spill.
+    its own spill. Length buckets compose with it (each sample is decoded bucketed once).
 
     ``spill_dir``: host spill files (raw 4W-byte rows per k-mer + manifest; resume: a sample
     whose manifest matches is never re-decoded). Otherwise ``device_store_rows`` sizes a
@@ -573,8 +836,8 @@ def run_trio_spill(
         return run_trio(mom_path, dad_path, child_path, cfg, metrics, region, device)
     if (spill_dir is None) == (device_store_rows is None):
         raise ValueError("exactly one of spill_dir / device_store_rows is required")
-    _reject_checkpoints(mom_path, dad_path)
     append_packed = make_ingest_step(cfg)
+    bucket_steps = make_bucketed_extract_steps(cfg) if cfg.read_len_buckets else None
     dev = resolve_device(device)
     if dev.type == "cuda" and n_passes + 1 > MAX_SPILL_BUCKETS:
         raise ValueError(f"{n_passes} passes: the partition kernel takes at most "
@@ -602,7 +865,7 @@ def run_trio_spill(
             try:
                 with m.timer(f"spill_{name}"):
                     ovf = _spill_stream(path, cfg, n_passes, hs.append_window, cap, m,
-                                        dev, append_packed, region)
+                                        dev, append_packed, region, bucket_steps)
             except BaseException:
                 hs.abort()
                 raise
@@ -625,7 +888,7 @@ def run_trio_spill(
 
             with m.timer(f"spill_{name}"):
                 ovf = _spill_stream(path, cfg, n_passes, dev_sink, cap, m, dev,
-                                    append_packed, region)
+                                    append_packed, region, bucket_steps)
             if ovf:
                 raise overflow_error(ovf, name)
             if max(store.fill, default=0) > rows_pp:

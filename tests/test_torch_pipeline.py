@@ -174,7 +174,9 @@ def test_cli_call_cpu_matches_jax_cli(trio_dir, tmp_path):
     ["--passes", "2", "--mesh", "2x2"], ["--mesh", "2x1"],
     ["--spill-rows", "1000", "--passes", "2", "--mesh", "1x2"],
     ["--spill-rows", "1000", "--passes", "2", "--mesh", "2x1"], ["--region", "chr20"],
-    ["--regions-bed", "r.bed"], ["--read-len-buckets", "32,64"], ["--ingest-threads", "4"],
+    # the length buckets and the feeder threads are live, but not beside an unported flag
+    ["--regions-bed", "r.bed"], ["--read-len-buckets", "32,64", "--mesh", "2x2"],
+    ["--ingest-threads", "4", "--region", "chr20"],
     ["--profile-dir", "prof"], ["--evidence-out", "ev.bam"], ["--sites-out", "s.tsv"],
 ])
 def test_cli_rejects_unported_flags(trio_dir, flag, capsys):

@@ -281,18 +281,34 @@ def test_spill_needs_exactly_one_sink(trio_dir, tmp_path):
 
 @pytest.mark.parametrize("what", ["npz", "buckets"])
 @pytest.mark.parametrize("entry", ["spill", "multipass"])
-def test_unported_inputs_name_the_roadmap(trio_dir, what, entry):
+def test_unported_inputs_name_the_roadmap(trio_dir, jax_runs, tmp_path, what, entry):
+    """Checkpoint parents and length buckets, once refused here, now run in both entries as
+    the JAX package runs them: bucketed, each gives run_trio's report; a `count` checkpoint
+    parent feeds the re-decode multipass, and fails in the spill (which decodes every
+    sample) with the JAX package's own error."""
+    from denovo_kmer_tpu.utils.checkpoint import save_table as jax_save_table
+    from denovo_kmer_tpu.pipeline import build_sample_table as jax_build_sample_table
+
     mom, dad, child = _paths(trio_dir)
     cfg = EngineConfig(**CFG)
     if what == "npz":
-        mom, item = "mom.npz", "item 7"
+        npz = str(tmp_path / "mom.npz")
+        jax_save_table(npz, jax_build_sample_table(mom, JaxConfig(**CFG)), JaxConfig(**CFG))
+        mom = npz
     else:
-        cfg, item = EngineConfig(**dict(CFG, read_len_buckets=(32, 64))), "item 8"
-    call = (lambda: run_trio_spill(mom, dad, child, cfg, 2, device_store_rows=64,
-                                   device="cpu")) if entry == "spill" else (
-        lambda: run_trio_multipass(mom, dad, child, cfg, 2, device="cpu"))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        call()
+        cfg = EngineConfig(**dict(CFG, read_len_buckets=(32, 64)))
+    if entry == "multipass":
+        res = run_trio_multipass(mom, dad, child, cfg, 2, device="cpu")
+        assert res.report == jax_runs["golden"].report
+    elif what == "buckets":
+        res = run_trio_spill(mom, dad, child, cfg, 2, device_store_rows=1 << 16, device="cpu")
+        assert res.report == jax_runs["golden"].report
+    else:
+        with pytest.raises(ValueError) as want:
+            jax_run_trio_spill(mom, dad, child, JaxConfig(**CFG), 2, device_store_rows=64)
+        with pytest.raises(ValueError) as got:
+            run_trio_spill(mom, dad, child, cfg, 2, device_store_rows=64, device="cpu")
+        assert str(got.value) == str(want.value)
 
 
 def test_cuda_request_without_a_card_raises(trio_dir):
