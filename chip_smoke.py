@@ -15,14 +15,26 @@ without a card or without the package beside it. Phases, each printed as one JSO
               extraction at the main-path batch (B=16384, max_read_len=160) over k in
               {15,21,31,32,33,63}, canonical on/off, vwords and length-shipped feeds, with
               the multipass filter (k=31, n_passes=3, pass_id 0 and 2), and at the bucket
-              widths 64 and 112 (k=31): valid masks identical, keys bit-exact where valid;
-              the partition at the spill window (N=34,078,720 rows of 2 words, 5 buckets
-              through the spill's entry, 8 through the JAX-contract entry) and at
-              benchmarks/micro_radix_partition.py's shape (N=2^24, C=4, 16 buckets): rows
-              and counts bit-exact; the block sort at block heights {2, 64, 2048} x {1, 3,
-              128} columns x keys over the full range, from a small range (ties) and >= 2^31,
-              then at benchmarks/micro_pallas_sort.py's shape (2^22 x 128, 2048-row blocks):
-              keys and payloads bit-exact, beside its torch.sort yardstick.
+              widths 64 and 112 (k=31), each timed with `fill` advancing batch by batch
+              through the main path's 34,078,720-row staging window, as the pipeline
+              writes, beside the store floor (one launch writing as many bytes, advancing
+              the same way); then edge cases: fills 0, 1, 3 and 5 into a buffer whose other
+              rows hold a sentinel, 1 and 17 reads, k in {1,15,16,31,32,33,47,48,63},
+              widths 32 to 160 (16 and 32 lanes a read) and 600 (several chunks a read),
+              both feeds: valid masks identical,
+              keys bit-exact where valid and the sentinel rows intact; the partition at
+              the spill window (N=34,078,720 rows of 2 words, 5 buckets through the spill's
+              entry, 8 through the JAX-contract entry) and at
+              benchmarks/micro_radix_partition.py's shape (N=2^24, C=4, 16 buckets), beside
+              ops/spill.py:partition_window timed whole at the spill window; then edge
+              cases: N below one block and 3 blocks + 1 row, 1, 2, 5, 33 and 1024 buckets,
+              random ids, all in one bucket, ids past the last bucket, 1, 2, 4, 5 and 8
+              columns, the strided (N, C).T view and a contiguous (C, N) input, and blocks
+              of 2^17 rows whose ids do not fit shared memory: rows and counts
+              bit-exact; the block sort at block heights {2, 64, 2048} x {1, 3, 128}
+              columns x keys over the full range, from a small range (ties) and >= 2^31,
+              then at benchmarks/micro_pallas_sort.py's shape (2^22 x 128, 2048-row
+              blocks): keys and payloads bit-exact, beside its torch.sort yardstick.
 3. parity   — on small synthetic trios, on the card and on the CPU: run_trio at k=31 (the
               fused call) and k=32 (the call_from_score fallback), one batch a window so
               the parents merge into populated tables and the child takes the compacting,
@@ -138,45 +150,146 @@ def extraction_bytes_ops(B, Lw, k, max_len, canonical, with_vwords):
     return nbytes, B * P * per_window
 
 
-def check_extraction(words, vwords, lengths, k, max_len, canonical, n_passes=1, pass_id=0):
-    """Kernel against plain version on one batch: valid masks identical, keys bit-exact
-    where valid; then both timed. Returns (max_abs_err, valid windows, ms, plain_ms)."""
-    from denovo_kmer_tpu_torch.ops.extract import append_plain, extract_append
+SENTINEL = -0x12345679  # staging rows outside a batch's rows hold this; they must survive
+
+
+def compare_extraction(run, words, vwords, lengths, k, max_len, canonical, n_passes=1,
+                       pass_id=0, fill=0):
+    """``run`` (the kernel's wrapper, or a callable with its signature) against the plain
+    version on one batch appended at row ``fill`` of a buffer of fill + B*P + 7 rows whose
+    other rows hold SENTINEL: valid masks identical, keys bit-exact where valid and in every
+    row outside the batch. Returns (max_abs_err, valid windows)."""
+    from denovo_kmer_tpu_torch.ops.extract import append_plain
     from denovo_kmer_tpu_torch.ops.stream import empty_accumulator
 
     dev = words.device
     B = words.shape[0]
     W, P = -(-2 * k // 32), max_len - k + 1
-    acc_k = empty_accumulator(B * P, W, dev)
-    acc_p = empty_accumulator(B * P, W, dev)
-    args = (words, vwords, lengths, k, max_len, canonical, n_passes, pass_id)
-    extract_append(acc_k, *args)
-    append_plain(acc_p, *args)
+    accs = []
+    for fn in (run, append_plain):
+        acc = empty_accumulator(fill + B * P + 7, W, dev)
+        acc.kmers.fill_(SENTINEL)
+        acc.valid.fill_(True)
+        accs.append(fn(acc._replace(fill=fill), words, vwords, lengths, k, max_len, canonical,
+                       n_passes, pass_id))
+    got, want = accs
     torch.cuda.synchronize()
-    what = f"k={k} max_read_len={max_len} canonical={canonical} " \
+    what = f"B={B} k={k} max_read_len={max_len} canonical={canonical} fill={fill} " \
            f"{'vwords' if vwords is not None else 'lengths'} n_passes={n_passes}/{pass_id}"
-    if not torch.equal(acc_k.valid, acc_p.valid):
+    if got.fill != want.fill or not torch.equal(got.valid, want.valid):
         raise AssertionError(f"valid masks differ: {what}")
-    v = acc_k.valid
-    diff = ((acc_k.kmers.to(torch.int64) & 0xFFFFFFFF)
-            - (acc_p.kmers.to(torch.int64) & 0xFFFFFFFF)).abs()[v]
+    rows = want.valid.clone()
+    rows[:fill] = True
+    rows[fill + B * P:] = True
+    diff = ((got.kmers.to(torch.int64) & 0xFFFFFFFF)
+            - (want.kmers.to(torch.int64) & 0xFFFFFFFF)).abs()[rows]
     err = int(diff.max()) if diff.numel() else 0
     if err != 0:
-        raise AssertionError(f"keys differ where valid: {what} max_abs_err={err}")
-    n_valid = int(v.sum())
-    if n_valid == 0:
-        raise AssertionError(f"no valid window: {what}")
-    ms = cuda_ms(lambda: extract_append(acc_k, *args))
-    plain_ms = cuda_ms(lambda: append_plain(acc_p, *args))
-    return err, n_valid, ms, plain_ms
+        raise AssertionError(f"keys differ where valid or outside the batch: {what} "
+                             f"max_abs_err={err}")
+    return err, int(want.valid[fill:fill + B * P].sum())
+
+
+class StagingWindow:
+    """The main path's staging window (34,078,720 rows), one buffer per key width: timed
+    batches are appended at a fill that advances batch by batch through it, as the
+    pipeline writes them, so the output does not sit in L2 between launches."""
+
+    def __init__(self, rows, device):
+        self.rows, self.device, self.accs = rows, device, {}
+
+    def timed(self, run, args, W, rows_per_batch):
+        from denovo_kmer_tpu_torch.ops.stream import empty_accumulator
+
+        if W not in self.accs:
+            self.accs = {W: empty_accumulator(self.rows, W, self.device)}
+        acc = self.accs[W]
+        slots = max(1, self.rows // rows_per_batch)
+        step = [0]
+
+        def call():
+            run(acc._replace(fill=(step[0] % slots) * rows_per_batch), *args)
+            step[0] += 1
+        return call
+
+
+def store_floor(window, W, rows):
+    """The store floor of an append of ``rows`` windows: one ``zero_`` launch writing as many
+    bytes as the kernel writes (rows x (4W + 1)), at an offset that advances through a
+    buffer of the staging window's size as the appends do (a yardstick, timed like the
+    kernel; the port never calls it)."""
+    per = rows * (4 * W + 1)
+    flat = torch.empty(window.rows * (4 * W + 1), dtype=torch.uint8, device=window.device)
+    slots = max(1, flat.numel() // per)
+    step = [0]
+
+    def call():
+        i = step[0] % slots
+        flat[i * per:(i + 1) * per].zero_()
+        step[0] += 1
+    return call
+
+
+def extraction_edges(rng, dev, runs):
+    """Bit-exact edge cases for each of ``runs`` (the kernel's wrapper, or a callable with
+    its signature): unaligned fills, 1 and 17 reads, every key width, the bucket widths and
+    a width over 512 bases (several chunks a read), both feeds."""
+    from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+
+    n = 0
+    for max_len in (32, 48, 64, 80, 112, 160, 600):
+        for feed, rate in (("vwords", 0.01), ("lengths", 0.0)):
+            p = make_batch(rng, 17 + 64, max_len, rate)
+            words_all = as_int32_tensor(p.words).to(dev)
+            for B in (1, 17):
+                words = words_all[:B]
+                vwords = as_int32_tensor(p.vwords)[:B].to(dev) if feed == "vwords" else None
+                lengths = as_int32_tensor(p.length)[:B].to(dev) if feed == "lengths" else None
+                for k in (1, 15, 16, 31, 32, 33, 47, 48, 63):
+                    if k > max_len:
+                        continue
+                    for fill in (0, 1, 3, 5):
+                        for run in runs:
+                            compare_extraction(run, words, vwords, lengths, k, max_len,
+                                               True, fill=fill)
+                            n += 1
+    return n
 
 
 def phase_kernels(rng):
+    from denovo_kmer_tpu_torch.config import EngineConfig
     from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+    from denovo_kmer_tpu_torch.ops.extract import append_plain, extract_append
+    from denovo_kmer_tpu_torch.pipeline import _staging_slots
 
     dev = torch.device("cuda")
     B = 16384
+    window = StagingWindow(_staging_slots(EngineConfig(**MAIN_CFG)), dev)
     cases, worst = [], 0
+
+    def one(words, vwords, lengths, k, max_len, canonical, n_passes=1, pass_id=0):
+        args = (words, vwords, lengths, k, max_len, canonical, n_passes, pass_id)
+        err, n_valid = 0, 0
+        for fill in ((0, 1, 3, 5) if (k, max_len, n_passes) == (K, 160, 1) else (0,)):
+            err, n_valid = compare_extraction(extract_append, *args, fill=fill)
+        W, P = -(-2 * k // 32), max_len - k + 1
+        ms = cuda_ms(window.timed(extract_append, args, W, B * P))
+        plain_ms = cuda_ms(window.timed(append_plain, args, W, B * P))
+        floor_ms = cuda_ms(store_floor(window, W, B * P))
+        nbytes, ops = extraction_bytes_ops(B, words.shape[1], k, max_len, canonical,
+                                           vwords is not None)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+        cases.append(dict(k=k, max_read_len=max_len, canonical=canonical,
+                          feed="vwords" if vwords is not None else "lengths",
+                          **({"n_passes": n_passes, "pass_id": pass_id} if n_passes > 1
+                             else {}),
+                          windows=B * P, valid=n_valid, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, store_floor_ms=floor_ms,
+                          bound_ms=max(bytes_ms, ops_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                          bytes=nbytes, ops=ops))
+        return err
+
     # the main width over every key width, then the bucket widths of phase 6 at k=31
     for max_len, ks in ((160, (15, 21, 31, 32, 33, 63)),
                         *((w, (K,)) for w in BUCKETS[:-1])):
@@ -189,28 +302,15 @@ def phase_kernels(rng):
             lengths = as_int32_tensor(p.length).to(dev) if feed == "lengths" else None
             for k in ks:
                 for canonical in (True, False):
-                    err, n_valid, ms, plain_ms = check_extraction(
-                        words, vwords, lengths, k, max_len, canonical)
-                    worst = max(worst, err)
-                    nbytes, ops = extraction_bytes_ops(B, p.words.shape[1], k, max_len,
-                                                       canonical, feed == "vwords")
-                    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-                    cases.append(dict(k=k, max_read_len=max_len, canonical=canonical,
-                                      feed=feed, windows=B * (max_len - k + 1),
-                                      valid=n_valid, max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                                      bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                                      bytes=nbytes, ops=ops))
+                    worst = max(worst, one(words, vwords, lengths, k, max_len, canonical))
             if max_len != 160:
                 continue
             for pass_id in (0, 2):  # the multipass filter: k=31, 3 passes
-                err, n_valid, ms, plain_ms = check_extraction(
-                    words, vwords, lengths, K, max_len, True, 3, pass_id)
-                cases.append(dict(k=K, max_read_len=max_len, canonical=True, feed=feed,
-                                  n_passes=3, pass_id=pass_id,
-                                  windows=B * (max_len - K + 1), valid=n_valid,
-                                  max_abs_err=err, ms=ms, plain_ms=plain_ms))
-    emit({"phase": "kernels", "kernel": "extract_kmers", "B": B, "cases": cases})
+                worst = max(worst, one(words, vwords, lengths, K, max_len, True, 3, pass_id))
+    window.accs.clear()
+    edges = extraction_edges(rng, dev, [extract_append])
+    emit({"phase": "kernels", "kernel": "extract_kmers", "B": B,
+          "staging_rows": window.rows, "edge_cases": edges, "cases": cases})
     return cases, worst
 
 
@@ -223,6 +323,54 @@ def partition_library(data, ids, n_buckets, block_lanes):
     return data[:, order]
 
 
+def compare_partition(run, data, ids, nb, block_lanes, what):
+    """``run`` against the plain version: rows and counts bit-exact. Returns max_abs_err."""
+    from denovo_kmer_tpu_torch.ops.partition import partition_blocks_plain
+
+    out, counts = run(data, ids, nb, block_lanes)
+    want, want_counts = partition_blocks_plain(data, ids, nb, block_lanes)
+    torch.cuda.synchronize()
+    err = max(int(((out.to(torch.int64) & 0xFFFFFFFF)
+                   - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max()),
+              int((counts - want_counts).abs().max()))
+    if err != 0 or int(counts.sum()) != data.shape[1]:
+        raise AssertionError(f"partition differs from its plain version: {what} "
+                             f"max_abs_err={err}")
+    return err
+
+
+def partition_edges(dev, runs):
+    """Bit-exact edge cases for each of ``runs`` (the kernel's entry, or a callable with its
+    signature): at 32,768-row blocks, N below one block and 3 blocks + 1 row; 1, 2, 5, 33
+    and 1024 buckets (ballot and match ranks); random ids, all ids in one bucket, ids past
+    the last bucket; 1, 2, 4, 5 and 8 columns (more than 4 pass through the kernel's tile 4
+    at a time); the strided (N, C).T view and a contiguous (C, N) input. Then blocks of 2^17
+    rows, whose ids do not fit shared memory, over 2 blocks + 5 rows."""
+    from denovo_kmer_tpu_torch.ops.spill import SPILL_BLOCK_LANES
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = [(N, SPILL_BLOCK_LANES, nb, C) for N in (1000, 3 * SPILL_BLOCK_LANES + 1)
+              for nb in (1, 2, 5, 33, 1024) for C in (1, 2, 4, 5, 8)]
+    shapes += [(2 * (1 << 17) + 5, 1 << 17, nb, C) for nb in (1, 5, 33, 1024)
+               for C in (1, 2, 4, 5)]
+    n = 0
+    for N, lanes, nb, C in shapes:
+        ids_cases = {
+            "random": torch.randint(0, nb, (N,), device=dev, generator=gen),
+            "one bucket": torch.full((N,), nb // 2, device=dev),
+            "past the last": torch.randint(0, nb + 7, (N,), device=dev, generator=gen)}
+        rows = torch.randint(-2**31, 2**31, (N, C), dtype=torch.int32, device=dev,
+                             generator=gen)
+        for layout, data in (("rows.T", rows.T), ("(C, N)", rows.T.contiguous())):
+            for name, ids in ids_cases.items():
+                for run in runs:
+                    compare_partition(run, data, ids.to(torch.int32), nb, lanes,
+                                      f"N={N} block_lanes={lanes} C={C} n_buckets={nb} "
+                                      f"{layout} {name}")
+                    n += 1
+    return n
+
+
 def phase_partition():
     from denovo_kmer_tpu_torch.ops.partition import (
         partition_blocks_plain,
@@ -231,13 +379,19 @@ def phase_partition():
         radix_partition_blocks,
     )
     from denovo_kmer_tpu_torch.config import EngineConfig
-    from denovo_kmer_tpu_torch.ops.spill import SPILL_BLOCK_LANES, _window_ids
+    from denovo_kmer_tpu_torch.ops.spill import (
+        SPILL_BLOCK_LANES,
+        _window_ids,
+        partition_window,
+        spill_capacity,
+    )
     from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator
     from denovo_kmer_tpu_torch.pipeline import _staging_slots
 
     S = _staging_slots(EngineConfig(**MAIN_CFG))  # phase 5's staging window, 34,078,720
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
+    edges = partition_edges(dev, [partition_spill_blocks])
 
     def rand_words(*shape):
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=dev,
@@ -248,7 +402,8 @@ def phase_partition():
     # rows invalid (bucket 4), passed as the (2, S) view the spill passes
     rows = rand_words(S, 2)
     valid = torch.rand(S, device=dev, generator=gen) >= 0.15
-    ids5 = _window_ids(KmerAccumulator(rows, valid, S), 4)
+    window = KmerAccumulator(rows, valid, S)
+    ids5 = _window_ids(window, SPILL_PASSES)
     ids8 = torch.randint(0, 8, (S,), dtype=torch.int32, device=dev, generator=gen)
     micro = rand_words(4, 1 << 24)
     ids16 = torch.randint(0, 16, (1 << 24,), dtype=torch.int32, device=dev, generator=gen)
@@ -259,32 +414,30 @@ def phase_partition():
     ]
     for name, entry, data, ids, nb in shapes:
         C, N = data.shape
-        out, counts = entry(data, ids, nb, SPILL_BLOCK_LANES)
-        want, want_counts = partition_blocks_plain(data, ids, nb, SPILL_BLOCK_LANES)
-        torch.cuda.synchronize()
-        err = max(int(((out.to(torch.int64) & 0xFFFFFFFF)
-                       - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max()),
-                  int((counts - want_counts).abs().max()))
-        if err != 0 or int(counts.sum()) != N:
-            raise AssertionError(f"partition differs from its plain version: {name} "
-                                 f"max_abs_err={err}")
+        err = compare_partition(entry, data, ids, nb, SPILL_BLOCK_LANES, name)
         ms = cuda_ms(lambda: entry(data, ids, nb, SPILL_BLOCK_LANES), reps=10)
         plain_ms = cuda_ms(lambda: partition_blocks_plain(data, ids, nb, SPILL_BLOCK_LANES),
                            reps=5)
         library_ms = cuda_ms(lambda: partition_library(data, ids, nb, SPILL_BLOCK_LANES),
                              reps=5)
         nbytes = N * (8 * C + 4)  # rows read and written once, ids read once
-        ops = N * 24  # ~24 integer ops a row: match, popc, ranks, addresses
+        ops = N * 24  # ~24 integer ops a row: ranks, counts, slots, addresses
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
         cases.append(dict(shape=name, N=N, C=C, n_buckets=nb, block_lanes=SPILL_BLOCK_LANES,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=max(bytes_ms, ops_ms),
                           bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                           bytes=nbytes, ops=ops))
-        del out, counts, want, want_counts
-    del rows, valid, ids5, ids8, micro, ids16
+    # the spill's whole partition step at the window: pass ids, the kernel, assemble_blocks
+    cap = spill_capacity(S, SPILL_PASSES, 1.4)
+    step_ms = cuda_ms(lambda: partition_window(window, SPILL_PASSES, cap), reps=5)
+    ids_ms = cuda_ms(lambda: _window_ids(window, SPILL_PASSES), reps=5)
+    cases[0].update(partition_window_ms=step_ms, window_ids_ms=ids_ms,
+                    kernel_share_of_step=cases[0]["ms"] / step_ms)
+    del rows, valid, window, ids5, ids8, micro, ids16
     partition_kernel.launches = 0  # the comparisons above do not count
-    emit({"phase": "kernels", "kernel": "radix_partition", "cases": cases})
+    emit({"phase": "kernels", "kernel": "radix_partition", "edge_cases": edges,
+          "cases": cases})
     return cases
 
 
@@ -984,7 +1137,7 @@ def device_time(prof, trace_path, wall_s):
         name = e.get("name", "")
         if cat != "kernel":
             kinds["copies"] += dur
-        elif "extract_kmers" in name:
+        elif "extract_kmers_kernel" in name:
             kinds["extract_kernel"] += dur
         elif "radix_partition" in name:
             kinds["partition_kernel"] += dur
@@ -1073,7 +1226,7 @@ def main() -> int:
         "max_abs_err": worst, "max_abs_diff": worst,
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "store_floor_ms": main_case["store_floor_ms"],
         "ms_vwords_feed": vw_case["ms"], "plain_ms_vwords_feed": vw_case["plain_ms"],
         "bound_ms_vwords_feed": vw_case["bound_ms"],
         "ms_by_bucket_width": {c["max_read_len"]: c["ms"] for c in cases
@@ -1089,6 +1242,9 @@ def main() -> int:
         "ms": spill_case["ms"], "plain_ms": spill_case["plain_ms"],
         "bound_ms": spill_case["bound_ms"], "bound_by": spill_case["bound_by"],
         "library_ms": spill_case["library_ms"],
+        "partition_window_ms": spill_case["partition_window_ms"],
+        "by_shape": {c["shape"]: {key: c[key] for key in ("ms", "bound_ms")}
+                     for c in part_cases},
         "launches_by_path": {name: v["radix_partition"] for name, v in by_path.items()},
         "shape": f"N={spill_case['N']} C=2 n_buckets=5 block_lanes=32768 (spill window)"}, {
         "name": "block_sort", "route": "cuda",

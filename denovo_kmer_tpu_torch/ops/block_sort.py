@@ -26,6 +26,10 @@ import torch
 _FLIP = -(1 << 31)
 #: shared-memory budget of one CTA's tile (keys and payloads), as csrc/block_sort.cu takes it
 _SMEM_TILE = 128 * 1024
+#: ctypes parameter kinds of ``dk_block_sort`` in ``csrc/block_sort.cu``
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 
 
 def _check(keys: torch.Tensor, pays: torch.Tensor, block_rows: int) -> None:
@@ -88,8 +92,7 @@ def _kernel_library() -> ctypes.CDLL:
 
     lib = load("block_sort")
     if lib.dk_block_sort.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dk_block_sort.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, i, i, i, i, vp]
+        lib.dk_block_sort.argtypes = _ARGTYPES
         lib.dk_block_sort.restype = ctypes.c_int
     return lib
 

@@ -17,6 +17,7 @@ uint32 shifts on the CPU); right shifts of non-negative values need no mask.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -27,10 +28,11 @@ from denovo_kmer_tpu_torch.ops.table import u32
 from denovo_kmer_tpu_torch.parallel.router import pass_of
 
 _M32 = 0xFFFFFFFF
-#: largest shared-memory tile the kernel takes without opting into dynamic shared memory
-_SMEM_LIMIT = 48 * 1024
-#: windows a block aims to own (256 threads, a few windows each)
-_WINDOWS_PER_BLOCK = 2048
+#: ctypes parameter kinds of ``dk_extract_kmers_append`` in ``csrc/extract_kmers.cu``
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 def _reverse_2bit_fields(x: torch.Tensor) -> torch.Tensor:
@@ -157,23 +159,31 @@ def _kernel_library() -> ctypes.CDLL:
 
     lib = load("extract_kmers")
     if lib.dk_extract_kmers_append.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dk_extract_kmers_append.argtypes = [
-            vp, i, i, vp, i, vp, i, i, i, i, i, i, vp, vp, ctypes.c_longlong, i, vp,
-        ]
+        lib.dk_extract_kmers_append.argtypes = _ARGTYPES
         lib.dk_extract_kmers_append.restype = ctypes.c_int
     return lib
 
 
-def _tile_reads(B: int, Lw: int, k: int, P: int, with_vwords: bool) -> int:
-    """Reads one block stages: about ``_WINDOWS_PER_BLOCK`` windows, within the shared
-    memory limit. Each read takes its mw and cw stream words (Lw + W + 1 each) and, on the
-    vwords feed, its validity words (Lw/2 + 2), as ``csrc/extract_kmers.cu`` lays them out."""
-    per_read = 4 * (2 * (Lw + words_per_kmer(k) + 1) + (Lw // 2 + 2 if with_vwords else 0))
-    fit = _SMEM_LIMIT // per_read
-    if fit < 1:
-        raise ValueError(f"reads of {Lw * 16} bases exceed the kernel's shared-memory tile")
-    return max(1, min(B, -(-_WINDOWS_PER_BLOCK // P), fit))
+@functools.lru_cache(maxsize=None)
+def _chunk_words(k: int) -> int:
+    """Stream words ``csrc/extract_kmers.cu`` takes of a read at once with 32 lanes a read:
+    lane j holds word j of the chunk, and a window of the chunk reads W + 1 words from its
+    first, so the chunk and the W + 1 words past it fit 32 lanes. Even, so that a chunk
+    starts on a whole validity word (32 bases)."""
+    return (31 - words_per_kmer(k)) & ~1
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes_per_read(Lw: int, k: int, P: int) -> int:
+    """Lanes of a warp that ``csrc/extract_kmers.cu`` gives a read, 32 or 16, each lane a
+    window a step. 16 lanes (two reads a warp) need a read's words and the W + 1 a window
+    reads past its first to fit them, and are taken where they need at most 3/4 of the warp
+    steps of 32 lanes: a read of 34 windows (64 bases, k = 31) takes 3 half-warp steps in
+    place of 2 whole-warp ones that leave 30 of 64 lanes idle. On the card 16 lanes lost
+    where they save less (130 windows: 4.5 against 5 warp steps; PERF.md, Findings)."""
+    if Lw + words_per_kmer(k) + 1 > 16:
+        return 32
+    return 16 if 2 * -(-P // 16) <= 3 * -(-P // 32) else 32
 
 
 def _check(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
@@ -231,16 +241,19 @@ def extract_append(
                             n_passes, pass_id)
     if acc.kmers.dtype != torch.int32 or acc.valid.dtype != torch.bool:
         raise TypeError("staging buffer must be int32 keys and bool valid")
+    if acc.kmers.data_ptr() % 16:
+        raise ValueError("the kernel stores key rows as 8- and 16-byte vectors: the staging "
+                         "keys must start 16-byte aligned")
     if B == 0:
         return acc
 
-    tile = _tile_reads(B, Lw, k, P, vwords is not None)
     lib = _kernel_library()
     err = lib.dk_extract_kmers_append(
         words.data_ptr(), B, Lw,
         vwords.data_ptr() if vwords is not None else None, Lw // 2,
         lengths.data_ptr() if vwords is None else None,
-        k, P, int(bool(canonical)), n_passes, pass_id, tile,
+        k, P, int(bool(canonical)), n_passes, pass_id, _chunk_words(k),
+        _lanes_per_read(Lw, k, P),
         acc.kmers.data_ptr(), acc.valid.data_ptr(), acc.fill,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,

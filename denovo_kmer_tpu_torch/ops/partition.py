@@ -20,8 +20,12 @@ from typing import Tuple
 
 import torch
 
-#: the kernel's shared-memory histogram holds (8 warps + 1) rows of this many int32 buckets
+#: the kernel's shared-memory counts hold (16 warps + 3) rows of this many int32 buckets
 MAX_SPILL_BUCKETS = 1024
+#: ctypes parameter kinds of ``dk_radix_partition`` in ``csrc/radix_partition.cu``
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def partition_blocks_plain(data: torch.Tensor, ids: torch.Tensor, n_buckets: int,
@@ -51,8 +55,7 @@ def _kernel_library() -> ctypes.CDLL:
 
     lib = load("radix_partition")
     if lib.dk_radix_partition.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dk_radix_partition.argtypes = [vp, ll, ll, i, vp, ll, i, i, vp, vp, i, vp]
+        lib.dk_radix_partition.argtypes = _ARGTYPES
         lib.dk_radix_partition.restype = ctypes.c_int
     return lib
 

@@ -175,12 +175,17 @@ def test_cli_read_len_buckets_matches_jax_cli(mixed, tmp_path):
 @pytest.mark.parametrize("width", [32, 36, 64, 112, 160])
 @pytest.mark.parametrize("vwords", [False, True])
 def test_tile_reads_fits_shared_memory_at_narrow_widths(width, vwords):
-    """The extraction kernel's tile at each bucket width (k=31): within 48 KiB of shared
-    memory as csrc/extract_kmers.cu lays it out, and about 2048 windows a block."""
-    k, B = 31, 16384
+    """The extraction kernel's launch at each bucket width (k=31): a read's stream words, and
+    the W + 1 a window reads past its first, fit the lanes that hold them (16 or 32 lanes a
+    read, one chunk), and so do the 3 validity words a window reads; half a warp a read
+    where that needs at most 3/4 of the warp steps of a whole warp (width 64 only)."""
+    k = 31
     Lw = -(-width // 32) * 2
     P = width - k + 1
-    tile = extract._tile_reads(B, Lw, k, P, vwords)
-    per_read = 4 * (2 * (Lw + 2 + 1) + (Lw // 2 + 2 if vwords else 0))
-    assert 1 <= tile <= B and tile * per_read <= 48 * 1024
-    assert tile == min(-(-2048 // P), 48 * 1024 // per_read)
+    W = 2
+    lanes = extract._lanes_per_read(Lw, k, P)
+    assert Lw <= extract._chunk_words(k) and Lw + W + 1 <= lanes
+    if vwords:
+        assert Lw // 2 + 3 <= lanes
+    assert (lanes == 16) == (2 * -(-P // 16) <= 3 * -(-P // 32))
+    assert (lanes == 16) == (width in (32, 36, 64))

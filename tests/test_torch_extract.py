@@ -18,7 +18,8 @@ from denovo_kmer_tpu.ops.pack import pack_seqs as jax_pack_seqs
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
 from denovo_kmer_tpu_torch.ops.extract import (
-    _tile_reads,
+    _chunk_words,
+    _lanes_per_read,
     extract_append,
     extract_canonical_kmers,
     vwords_from_lengths,
@@ -141,17 +142,60 @@ def test_extract_append_checks_its_inputs():
 
 
 def test_kernel_tile_fits_shared_memory():
-    """The kernel's read tile: ~2048 windows a block, never past 48 KiB of staged words."""
-    # main path: B=16384, Lp=160 (Lw=10), k=31 (W=2), P=130 -> 16 reads of 132 B
-    assert _tile_reads(16384, 10, 31, 130, with_vwords=False) == 16
-    assert _tile_reads(16384, 10, 31, 130, with_vwords=True) == 16
-    assert _tile_reads(5, 10, 31, 130, with_vwords=True) == 5
-    # long reads: the tile shrinks to what 48 KiB holds (per read 4*(2*(Lw+W+1) + Lw/2+2))
-    Lw = 256
-    per_read = 4 * (2 * (Lw + 4 + 1) + Lw // 2 + 2)
-    assert _tile_reads(64, Lw, 63, 64, with_vwords=True) == 48 * 1024 // per_read == 18
-    with pytest.raises(ValueError):
-        _tile_reads(64, 8192, 63, 16 * 8192 - 62, with_vwords=False)
+    """The kernel stages no read tile in shared memory: a read's words sit in the lanes of a
+    warp. At the main path (Lp=160: Lw=10, k=31: W=2, P=130) a read is one chunk on 32
+    lanes; at 64-base reads (P=34) two reads share a warp; a 1024-base read (Lw=64) takes
+    three chunks."""
+    assert _chunk_words(31) == 28 and 10 + 2 + 1 <= 32
+    assert _lanes_per_read(10, 31, 130) == 32
+    assert _lanes_per_read(4, 31, 34) == 16
+    assert -(-(1024 - 63 + 1) // (16 * _chunk_words(63))) == 3
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63])
+def test_kernel_chunk_fits_a_warp(k):
+    """A warp's chunk of a read: its words and the W + 1 a window reads past its first fit
+    32 lanes, and it starts on a whole validity word."""
+    W = -(-2 * k // 32)
+    S = _chunk_words(k)
+    assert S % 2 == 0 and S + W + 1 <= 32 and S + W + 3 > 32
+    # the main path's reads (160 bases, 10 words) are one chunk at every k
+    assert 10 <= S
+
+
+@pytest.mark.parametrize("Lw,k,max_len,lanes", [
+    (4, 31, 64, 16),     # 34 windows: 3 half-warp steps against 2 warp steps, 30 lanes idle
+    (4, 32, 64, 16),     # 33 windows
+    (4, 15, 48, 16),     # W = 1, 34 windows
+    (6, 47, 80, 16),     # W = 3, 34 windows
+    (4, 63, 64, 16),     # W = 4, 2 windows
+    (2, 31, 32, 16),     # 2 windows
+    (10, 31, 160, 32),   # 130 windows: 4.5 against 5 warp steps
+    (8, 31, 112, 32),    # 82 windows
+    (6, 15, 80, 32),     # 66 windows
+    (10, 63, 160, 32),   # 98 windows
+    (2, 15, 32, 32),     # 18 windows: no fewer warp steps
+    (14, 31, 66, 32),    # 14 + 3 words do not fit 16 lanes
+    (38, 15, 600, 32),   # a read of several chunks
+])
+def test_kernel_gives_reads_half_a_warp_where_lanes_would_idle(Lw, k, max_len, lanes):
+    assert _lanes_per_read(Lw, k, max_len - k + 1) == lanes
+
+
+@pytest.mark.parametrize("k,max_len,chunks", [(31, 160, 1), (15, 600, 2), (63, 1024, 3),
+                                              (33, 4096, 10)])
+def test_long_reads_take_several_chunks(k, max_len, chunks):
+    """Reads wider than one chunk (over 512 bases) still stage every window: the plain
+    version's rows, which the kernel reproduces chunk by chunk on the card."""
+    P = max_len - k + 1
+    assert -(-P // (16 * _chunk_words(k))) == chunks
+    p = _packed(k, max_len, n_rate=0.0)
+    acc = extract_append(empty_accumulator(64 * P, -(-2 * k // 32)), as_int32_tensor(p.words),
+                         None, torch.from_numpy(p.length), k, max_len)
+    assert acc.fill == 64 * P
+    lengths = p.length.astype(np.int64)
+    want = (np.arange(P)[None, :] + k <= lengths[:, None]).reshape(-1)
+    np.testing.assert_array_equal(acc.valid.numpy(), want)
 
 
 @pytest.fixture(scope="module")
@@ -200,3 +244,45 @@ def test_pass_filters_partition_the_windows():
     assert not (masks[0] & masks[1]).any() and not (masks[1] & masks[2]).any()
     with pytest.raises(ValueError, match="pass_id"):
         extract_append(empty_accumulator(rows, 2), *args, n_passes=3, pass_id=3)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs these checks on the H100)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 15, 16, 31, 32, 33, 47, 48, 63])
+def test_kernel_edges_match_plain_on_the_card(card, k):
+    """Unaligned fills into a buffer whose other rows hold a sentinel that must survive,
+    1 and 17 reads, the bucket widths and a width over 512 bases (several chunks), both
+    feeds: valid masks and every staged row bit-exact against the plain version."""
+    from denovo_kmer_tpu_torch.ops.extract import append_plain
+
+    W = -(-2 * k // 32)
+    for max_len, B in ((32, 17), (48, 1), (64, 1), (80, 17), (112, 17), (160, 17), (600, 17)):
+        if max_len < k:
+            continue
+        P = max_len - k + 1
+        for n_rate in (0.0, 0.02):
+            p = _packed(k, max_len, n_rate)
+            words = as_int32_tensor(p.words)[:B].to(card)
+            vwords = as_int32_tensor(p.vwords)[:B].to(card) if n_rate else None
+            lengths = None if n_rate else as_int32_tensor(p.length)[:B].to(card)
+            for fill in (0, 1, 3, 5):
+                accs = []
+                for run in (extract_append, append_plain):
+                    acc = empty_accumulator(fill + B * P + 7, W, card)
+                    acc.kmers.fill_(-0x12345679)
+                    acc.valid.fill_(True)
+                    accs.append(run(acc._replace(fill=fill), words, vwords, lengths, k,
+                                    max_len))
+                got, want = accs
+                assert got.fill == want.fill == fill + B * P
+                assert torch.equal(got.valid, want.valid), (max_len, B, fill)
+                rows = want.valid.clone()
+                rows[:fill] = True
+                rows[fill + B * P:] = True
+                assert torch.equal(got.kmers[rows], want.kmers[rows]), (max_len, B, fill)

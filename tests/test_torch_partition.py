@@ -142,3 +142,28 @@ def test_kernel_matches_plain_on_the_card():
     got = partition_spill_blocks(d, i, 5, block_lanes=256)
     want = partition_blocks_plain(d, i, 5, 256)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_buckets", [1, 2, 5, 33, 1024])
+def test_kernel_edges_match_plain_on_the_card(n_buckets):
+    """N below one block and 3 blocks + 1 row, 1, 2, 4, 5 and 8 columns (more than 4 go
+    through the kernel's tile 4 at a time), blocks of 2^17 rows whose ids do not fit shared
+    memory, the strided (N, C).T view and a contiguous (C, N) input, all ids in one bucket
+    and ids past the last bucket: rows and counts bit-exact against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs these checks on the H100)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n_buckets)
+    shapes = [(N, 32768, C) for N in (1000, 3 * 32768 + 1) for C in (1, 2, 4, 5, 8)]
+    shapes += [(2 * (1 << 17) + 5, 1 << 17, C) for C in (1, 2, 4, 5)]
+    for N, lanes, C in shapes:
+        rows = _t(rng.integers(0, 2**32, size=(N, C), dtype=np.uint32)).to(dev)
+        for ids in (rng.integers(0, n_buckets, size=N),
+                    np.full(N, n_buckets - 1),
+                    rng.integers(0, n_buckets + 3, size=N)):
+            i = _t(ids.astype(np.uint32)).to(dev)
+            for data in (rows.T, rows.T.contiguous()):
+                got = partition_spill_blocks(data, i, n_buckets, lanes)
+                want = partition_blocks_plain(data, i, n_buckets, lanes)
+                assert all(torch.equal(x, y) for x, y in zip(got, want)), (N, lanes, C)
