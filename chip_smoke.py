@@ -31,10 +31,14 @@ without a card or without the package beside it. Phases, each printed as one JSO
               random ids, all in one bucket, ids past the last bucket, 1, 2, 4, 5 and 8
               columns, the strided (N, C).T view and a contiguous (C, N) input, and blocks
               of 2^17 rows whose ids do not fit shared memory: rows and counts
-              bit-exact; the block sort at block heights {2, 64, 2048} x {1, 3, 128}
-              columns x keys over the full range, from a small range (ties) and >= 2^31,
-              then at benchmarks/micro_pallas_sort.py's shape (2^22 x 128, 2048-row
-              blocks): keys and payloads bit-exact, beside its torch.sort yardstick.
+              bit-exact; the block sort at every block height it has an instance for
+              (2 to 16,384) x {1, 3, 9, 128} columns x keys over the full range, from a
+              small range (ties) and >= 2^31, then at benchmarks/micro_pallas_sort.py's
+              shape (2^22 x 128, 2048-row blocks): keys and payloads bit-exact, beside
+              its torch.sort yardstick, a copy floor, and its registers, spilled bytes
+              and resident CTAs an SM at every height from 2,048 up. Operations bounds
+              divide by the card's integer rate (64 a clock an SM x SMs x the maximum SM
+              clock nvidia-smi reads, printed on the start line).
 3. parity   — on small synthetic trios, on the card and on the CPU: run_trio at k=31 (the
               fused call) and k=32 (the call_from_score fallback), one batch a window so
               the parents merge into populated tables and the child takes the compacting,
@@ -72,6 +76,7 @@ power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -88,19 +93,43 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ["extract_kmers", "radix_partition", "block_sort"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-INT_OPS_PER_S = 67e12  # the data sheet's non-tensor (float32) peak, used for integer ALU ops
+# 32-bit integer add, compare and min/max results a clock an SM at compute capability 9.0
+# (CUDA C++ Programming Guide, throughput of native arithmetic instructions)
+INT_RESULTS_PER_CLOCK_SM = 64
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def power_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+def nvidia_smi(query: str) -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
     if r.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {r.stderr}")
     return r.stdout.strip().splitlines()[0]
+
+
+def power_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_mhz() -> float:
+    return float(nvidia_smi("clocks.max.sm").split()[0])
+
+
+def int_ops_per_s() -> float:
+    """The card's integer rate: INT_RESULTS_PER_CLOCK_SM x its SMs x its maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT_RESULTS_PER_CLOCK_SM * sms * max_sm_clock_mhz() * 1e6
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and operations over
+    the integer rate."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s() * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -278,16 +307,14 @@ def phase_kernels(rng):
         floor_ms = cuda_ms(store_floor(window, W, B * P))
         nbytes, ops = extraction_bytes_ops(B, words.shape[1], k, max_len, canonical,
                                            vwords is not None)
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, ops)
         cases.append(dict(k=k, max_read_len=max_len, canonical=canonical,
                           feed="vwords" if vwords is not None else "lengths",
                           **({"n_passes": n_passes, "pass_id": pass_id} if n_passes > 1
                              else {}),
                           windows=B * P, valid=n_valid, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, store_floor_ms=floor_ms,
-                          bound_ms=max(bytes_ms, ops_ms),
-                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                          bytes=nbytes, ops=ops))
+                          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops))
         return err
 
     # the main width over every key width, then the bucket widths of phase 6 at k=31
@@ -422,12 +449,10 @@ def phase_partition():
                              reps=5)
         nbytes = N * (8 * C + 4)  # rows read and written once, ids read once
         ops = N * 24  # ~24 integer ops a row: ranks, counts, slots, addresses
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, ops)
         cases.append(dict(shape=name, N=N, C=C, n_buckets=nb, block_lanes=SPILL_BLOCK_LANES,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=max(bytes_ms, ops_ms),
-                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                          bytes=nbytes, ops=ops))
+                          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops))
     # the spill's whole partition step at the window: pass ids, the kernel, assemble_blocks
     cap = spill_capacity(S, SPILL_PASSES, 1.4)
     step_ms = cuda_ms(lambda: partition_window(window, SPILL_PASSES, cap), reps=5)
@@ -455,65 +480,91 @@ def block_sort_library(keys, pays, R):
             torch.take_along_dim(pays.view(-1, R, L), s.indices, dim=1).view(-1, L))
 
 
+BLOCK_SORT_EDGE_ROWS = tuple(1 << i for i in range(1, 15))  # every instance: 2 .. 16384
+BLOCK_SORT_EDGE_COLS = (1, 3, 9, 128)
+BLOCK_SORT_EDGE_KEYS = (("full", 0, 2**32), ("ties", 0, 8), ("high", 2**31, 2**32))
+
+
+def compare_block_sort(run, keys, pays, R, what):
+    """``run`` (the kernel's wrapper, or a callable with its signature) against the plain
+    version: keys and payloads bit-exact, every column ascending. Returns max_abs_err."""
+    from denovo_kmer_tpu_torch.ops.block_sort import block_sort_plain
+
+    got = run(keys, pays, R)
+    want = block_sort_plain(keys, pays, R)
+    torch.cuda.synchronize()
+    err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
+                  .abs().max()) for g, w in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"block sort differs from its plain version: {what} "
+                             f"max_abs_err={err}")
+    k = got[0].view(-1, R, keys.shape[1]).to(torch.int64) & 0xFFFFFFFF
+    if not bool((k[:, 1:] >= k[:, :-1]).all()):
+        raise AssertionError(f"block sort output does not ascend: {what}")
+    return err
+
+
+def block_sort_edges(dev, runs):
+    """Bit-exact edge cases for each of ``runs``: every block height the kernel has an
+    instance for (2 to 16,384) x 1, 3, 9 and 128 columns x keys over the whole range,
+    from a small range (ties) and >= 2^31, at least 4 blocks and 4,096 rows. Returns
+    (cases, max_abs_err)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, worst = 0, 0
+    for R in BLOCK_SORT_EDGE_ROWS:
+        N = R * max(4, 4096 // R)
+        for L in BLOCK_SORT_EDGE_COLS:
+            for name, lo, hi in BLOCK_SORT_EDGE_KEYS:
+                keys = torch.randint(lo, hi, (N, L), dtype=torch.int64, device=dev,
+                                     generator=gen).to(torch.int32)
+                pays = torch.arange(N * L, dtype=torch.int32, device=dev).view(N, L)
+                for run in runs:
+                    worst = max(worst, compare_block_sort(run, keys, pays, R,
+                                                          f"R={R} L={L} {name}"))
+                    n += 1
+    return n, worst
+
+
 def phase_block_sort():
-    """The block-sort kernel against its plain version, bit for bit (keys and payloads): at
-    the edge shapes (block heights 2, 64, 2048; 1, 3 and 128 columns; keys over the whole
-    range, from a small range with many ties, and >= 2^31), then at the Pallas probe's
-    shape, where kernel, plain version and the torch.sort yardstick are timed beside the
-    bound."""
-    from denovo_kmer_tpu_torch.ops.block_sort import block_lanes, block_sort, block_sort_plain
+    """The block-sort kernel against its plain version, bit for bit (keys and payloads), at
+    the edge cases of ``block_sort_edges``, then at the Pallas probe's shape, where kernel,
+    plain version, the torch.sort yardstick and the copy floor (``copy_`` of keys and of
+    payloads: the same bytes) are timed beside the bound; with the kernel's registers and
+    resident CTAs an SM."""
+    from denovo_kmer_tpu_torch.ops.block_sort import (
+        block_sort,
+        block_sort_plain,
+        kernel_resources,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-
-    def rand(shape, lo, hi):
-        return torch.randint(lo, hi, shape, dtype=torch.int64, device=dev,
-                             generator=gen).to(torch.int32)
-
-    def compare(keys, pays, R, what):
-        got = block_sort(keys, pays, R)
-        want = block_sort_plain(keys, pays, R)
-        torch.cuda.synchronize()
-        err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
-                      .abs().max()) for g, w in zip(got, want))
-        if err != 0:
-            raise AssertionError(f"block sort differs from its plain version: {what} "
-                                 f"max_abs_err={err}")
-        k = got[0].view(-1, R, keys.shape[1]).to(torch.int64) & 0xFFFFFFFF
-        if not bool((k[:, 1:] >= k[:, :-1]).all()):
-            raise AssertionError(f"block sort output does not ascend: {what}")
-        return err
-
-    edges = []
-    for R in (2, 64, 2048):
-        for L in (1, 3, 128):
-            for name, lo, hi in (("full", 0, 2**32), ("ties", 0, 8), ("high", 2**31, 2**32)):
-                N = 4 * R
-                keys = rand((N, L), lo, hi)
-                pays = torch.arange(N * L, dtype=torch.int32, device=dev).view(N, L)
-                edges.append(dict(R=R, L=L, keys=name,
-                                  max_abs_err=compare(keys, pays, R, f"R={R} L={L} {name}")))
+    edges, edge_err = block_sort_edges(dev, [block_sort])
     N, L = BLOCK_SORT_SHAPE
     R = BLOCK_SORT_R
-    keys = rand((N, L), 0, 2**32)
-    pays = rand((N, L), 0, 2**32)
-    err = compare(keys, pays, R, "the probe's shape")
+    keys = torch.randint(-2**31, 2**31, (N, L), dtype=torch.int32, device=dev, generator=gen)
+    pays = torch.randint(-2**31, 2**31, (N, L), dtype=torch.int32, device=dev, generator=gen)
+    err = compare_block_sort(block_sort, keys, pays, R, "the probe's shape")
     ms = cuda_ms(lambda: block_sort(keys, pays, R), reps=5, warmup=1)
     plain_ms = cuda_ms(lambda: block_sort_plain(keys, pays, R), reps=2, warmup=1)
     library_ms = cuda_ms(lambda: block_sort_library(keys, pays, R), reps=5, warmup=1)
+    out_k, out_p = torch.empty_like(keys), torch.empty_like(pays)
+    copy_ms = cuda_ms(lambda: (out_k.copy_(keys), out_p.copy_(pays)), reps=5, warmup=1)
     block_sort.launches = 0  # the comparisons above do not count
     nbytes = 4 * keys.numel() * 4  # keys and payloads read once and written once
     stages = R.bit_length() - 1
     stages = stages * (stages + 1) // 2
-    ops = (N // 2) * L * stages * 4  # a compare, a select and two moves a pair and stage
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    # a compare (the direction folded in) and four selects a pair and stage
+    ops = (N // 2) * L * stages * 5
+    bound_ms, bound_by = bound(nbytes, ops)
     out = {"phase": "kernels", "kernel": "block_sort", "shape": [N, L], "block_rows": R,
-           "lanes_per_cta": block_lanes(R, L), "stages": stages, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": nbytes, "ops": ops, "edge_cases": edges}
-    del keys, pays
+           "resources": kernel_resources(keys, R),
+           "resources_by_height": {r: kernel_resources(keys, r) for r in (4096, 8192, 16384)},
+           "stages": stages, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "copy_floor_ms": copy_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "ops": ops, "edge_cases": edges,
+           "edge_max_abs_err": edge_err}
+    del keys, pays, out_k, out_p
     torch.cuda.empty_cache()
     emit(out)
     return out
@@ -1184,7 +1235,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     emit({"phase": "start", "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0), "power": power_line()})
+          "device": torch.cuda.get_device_name(0), "power": power_line(),
+          "max_sm_clock_mhz": max_sm_clock_mhz(),
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "int_ops_per_s": int_ops_per_s()})
 
     t0 = time.perf_counter()
     load_all(KERNELS)
@@ -1251,11 +1305,11 @@ def main() -> int:
         "source": "denovo_kmer_tpu_torch/csrc/block_sort.cu",
         "replaces": "benchmarks/micro_pallas_sort.py:73",
         "launches": launches["block_sort"],
-        "max_abs_err": max([sort_case["max_abs_err"]]
-                           + [c["max_abs_err"] for c in sort_case["edge_cases"]]),
+        "max_abs_err": max(sort_case["max_abs_err"], sort_case["edge_max_abs_err"]),
         "ms": sort_case["ms"], "plain_ms": sort_case["plain_ms"],
         "bound_ms": sort_case["bound_ms"], "bound_by": sort_case["bound_by"],
-        "library_ms": sort_case["library_ms"],
+        "library_ms": sort_case["library_ms"], "copy_floor_ms": sort_case["copy_floor_ms"],
+        "resources": sort_case["resources"],
         "launches_by_path": {name: v["block_sort"] for name, v in by_path.items()},
         "shape": "keys, pays (2^22, 128) u32, 2048-row blocks (a probe: no path calls it)"}],
         "unported": []})

@@ -10,25 +10,27 @@ as on the TPU and kernel, plain version and Pallas kernel agree bit for bit, pay
 included.
 
 ``block_sort`` launches the hand-written kernel ``csrc/block_sort.cu`` on CUDA tensors
-(counted in ``block_sort.launches``) and runs ``block_sort_plain`` on CPU tensors. There is
-no fallback from one to the other. No pipeline calls it: it is a probe of sort costs, driven
-by ``chip_smoke.py`` at the Pallas probe's shape (2^22 x 128, 2048-row blocks).
+(counted in ``block_sort.launches``; the kernel's entry picks the CTA's columns from the
+block height), and runs ``block_sort_plain`` on CPU tensors. There is no fallback from one
+to the other. No pipeline calls it: it is a probe of sort costs, driven by
+``chip_smoke.py`` at the Pallas probe's shape (2^22 x 128, 2048-row blocks).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 #: XOR with the sign bit maps unsigned order onto signed int32 order
 _FLIP = -(1 << 31)
-#: shared-memory budget of one CTA's tile (keys and payloads), as csrc/block_sort.cu takes it
-_SMEM_TILE = 128 * 1024
+#: the tallest block the kernel has an instance for (csrc/block_sort.cu, kMaxLogR): a column
+#: is held in the registers of a team of at most one CTA
+MAX_BLOCK_ROWS = 1 << 14
 #: ctypes parameter kinds of ``dk_block_sort`` in ``csrc/block_sort.cu``
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p]
 
 
@@ -44,8 +46,9 @@ def _check(keys: torch.Tensor, pays: torch.Tensor, block_rows: int) -> None:
         raise ValueError(f"keys {tuple(keys.shape)} and pays {tuple(pays.shape)} differ")
     if keys.device != pays.device:
         raise ValueError(f"keys are on {keys.device}, pays on {pays.device}")
-    if block_rows < 2 or block_rows & (block_rows - 1):
-        raise ValueError(f"block_rows ({block_rows}) must be a power of two >= 2")
+    if block_rows < 2 or block_rows & (block_rows - 1) or block_rows > MAX_BLOCK_ROWS:
+        raise ValueError(f"block_rows ({block_rows}) must be a power of two from 2 to "
+                         f"{MAX_BLOCK_ROWS}")
     N, L = keys.shape
     if N == 0 or L == 0 or N % block_rows:
         raise ValueError(f"N ({N}) must be a positive multiple of block_rows ({block_rows}) "
@@ -78,15 +81,6 @@ def block_sort_plain(keys: torch.Tensor, pays: torch.Tensor,
     return (k ^ _FLIP).view(N, L), p.reshape(N, L)
 
 
-def block_lanes(block_rows: int, L: int) -> int:
-    """Columns one CTA takes: as many as keep its tile within ``_SMEM_TILE``."""
-    fit = _SMEM_TILE // (8 * block_rows)
-    if fit < 1:
-        raise ValueError(f"block_rows ({block_rows}) exceeds the kernel's shared-memory tile "
-                         f"({_SMEM_TILE // 8} rows at most)")
-    return min(L, fit)
-
-
 def _kernel_library() -> ctypes.CDLL:
     from denovo_kmer_tpu_torch.utils.cuda_build import load
 
@@ -97,28 +91,41 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
+def _launch(keys, pays, out_keys, out_pays, block_rows, info) -> None:
+    dev = keys.device
+    N, L = keys.shape
+    err = _kernel_library().dk_block_sort(
+        keys.data_ptr(), pays.data_ptr(), out_keys.data_ptr(), out_pays.data_ptr(), N, L,
+        block_rows, dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream, info)
+    if err != 0:
+        raise RuntimeError(f"block_sort kernel launch failed: CUDA error {err}")
+
+
 def block_sort(keys: torch.Tensor, pays: torch.Tensor,
                block_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort each column of each (block_rows, L) block of (N, L) int32 ``keys`` by unsigned
     key, ``pays`` alongside; returns new (keys, pays). CUDA tensors launch
-    ``csrc/block_sort.cu``; CPU tensors run ``block_sort_plain``."""
+    ``csrc/block_sort.cu``, CPU tensors run ``block_sort_plain``."""
     _check(keys, pays, block_rows)
-    dev = keys.device
-    if dev.type != "cuda":
+    if keys.device.type != "cuda":
         return block_sort_plain(keys, pays, block_rows)
-    N, L = keys.shape
-    lanes = block_lanes(block_rows, L)
     out_keys = torch.empty_like(keys)
     out_pays = torch.empty_like(pays)
-    err = _kernel_library().dk_block_sort(
-        keys.data_ptr(), pays.data_ptr(), out_keys.data_ptr(), out_pays.data_ptr(), N, L,
-        block_rows, lanes, dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"block_sort kernel launch failed: CUDA error {err}")
+    _launch(keys, pays, out_keys, out_pays, block_rows, None)
     block_sort.launches += 1
     return out_keys, out_pays
 
 
 block_sort.launches = 0
+
+
+def kernel_resources(keys: torch.Tensor, block_rows: int) -> Dict[str, int]:
+    """What the kernel instance for (N, L) CUDA ``keys`` at this block height uses, from the
+    CUDA runtime (nothing launches): registers and spilled (local) bytes a thread, CTAs
+    resident on an SM, threads, shared bytes and columns a CTA."""
+    _check(keys, keys, block_rows)
+    info = (ctypes.c_int * 6)()
+    _launch(keys, keys, keys, keys, block_rows, ctypes.addressof(info))
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads", "smem_bytes",
+                     "columns"), info))
