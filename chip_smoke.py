@@ -13,7 +13,7 @@ without a card or without the package beside it. Phases, each printed as one JSO
               quantity is an integer), timed by CUDA events (median after warm-up) beside
               its bound and, where one PyTorch call computes the same function, that call:
               extraction at the main-path batch (B=16384, max_read_len=160) over k in
-              {15,21,31,32,33,63}, canonical on/off, vwords and length-shipped feeds, with
+              {15,21,31,32,33,41,63}, canonical on/off, vwords and length-shipped feeds, with
               the multipass filter (k=31, n_passes=3, pass_id 0 and 2), and at the bucket
               widths 64 and 112 (k=31), each timed with `fill` advancing batch by batch
               through the main path's 34,078,720-row staging window, as the pipeline
@@ -45,7 +45,9 @@ without a card or without the package beside it. Phases, each printed as one JSO
               capacity-growing flush_score; run_trio_spill with a device store (3 passes)
               and run_trio_multipass (2 passes); a length-bucketed run_trio on a
               mixed-length trio, and run_trio fed `count` checkpoints of the parents:
-              identical reports.
+              identical reports. Then the sweep at k in (15, 32, 33), run_cohort of two
+              trios with the parental superset, run_evidence to BAM, SAM and FASTQ, and
+              group_sites: identical reports, superset rows and file bytes.
 4. main     — run_trio on a 4 Mbp genome with 3 x 262,144 reads of 151 bp, written as BAMs,
               at k=31, batch_reads=16384, accum_batches=16, table_capacity=2^23, decoded by
               the C++ feeder, under a torch.profiler trace of the device (busy time by
@@ -66,10 +68,26 @@ without a card or without the package beside it. Phases, each printed as one JSO
               Then a mixed-length trio (phase 4's reads trimmed to 60-151 bp): run_trio, and
               with read_len_buckets (64, 112, 160) run_trio, the device-store spill (4
               passes) and the 2-pass re-decode, each equal to the unbucketed run_trio.
+7. sweep, cohort, evidence_sites — the same BAMs and config: run_trio_multi_k at k in
+              (15, 21, 31, 41), one decode a sample and 4 x 48 extraction launches, k=31's
+              report equal to phase 4's, every k's candidates and tables_n to the numpy
+              reference at that k and to run_trio at that k (timed beside the sweep), every
+              planted SNV under a candidate at every k; `cohort` through the CLI with a
+              manifest of phase 4's trio and a trio B sampled from the same genome with its
+              own 50 SNVs (96 launches): each trio's TSV equals its run_trio report, the
+              parental superset the numpy union of the four parents' counts (a trio B SNV
+              under no candidate is printed with its child read depth and the child counts
+              of the k-mers over it); `call --evidence-out --sites-out` (16 launches each
+              for evidence and sites, counted from 0 around each of their calls):
+              the evidence BAM holds exactly the child reads with a valid window whose
+              canonical k-mer is a candidate, every planted SNV lies inside a chrS site and
+              every site holds one. The extraction's plain version may not run in phase 7.
 
-Each path of phases 4 to 6 runs with every kernel's launch count set to 0 just before it
-and read just after; the counts come from those runs alone (the block sort is a probe that
-no path launches). Then a ``kernels`` line (one entry per kernel), the card's name and
+BAMs store reverse-strand reads in reference orientation at the position of their first
+stored base, as an aligner does; canonical counting does not see the strand. Each path of
+phases 4 to 7 runs with every kernel's launch count set to 0 just before it and read just
+after; the counts come from those runs alone (the block sort is a probe that no path
+launches). Then a ``kernels`` line (one entry per kernel), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -317,8 +335,9 @@ def phase_kernels(rng):
                           bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops))
         return err
 
-    # the main width over every key width, then the bucket widths of phase 6 at k=31
-    for max_len, ks in ((160, (15, 21, 31, 32, 33, 63)),
+    # the main width over every key width and every k of phase 7's sweep, then the bucket
+    # widths of phase 6 at k=31
+    for max_len, ks in ((160, tuple(sorted({15, 21, 31, 32, 33, 63, *SWEEP_KS}))),
                         *((w, (K,)) for w in BUCKETS[:-1])):
         batches = {"vwords": make_batch(rng, B, max_len, 0.01),
                    "lengths": make_batch(rng, B, max_len, 0.0)}
@@ -622,6 +641,7 @@ def phase_parity(work):
             out[f"k31_{name}"] = dict(tables_n=gpu_mp.tables_n, cuda_s=t1 - t0, cpu_s=t2 - t1)
     emit({"phase": "parity", "batch_reads": 1024, "accum_batches": 1,
           "reads": {s: len(r) for s, r in trio.reads.items()}, **out})
+    return paths
 
 
 def phase_parity_buckets(work):
@@ -663,6 +683,71 @@ def phase_parity_buckets(work):
     emit({"phase": "parity_buckets_checkpoints", "buckets": list(BUCKETS), **out})
 
 
+def phase_parity_slice(work, paths):
+    """cuda == cpu on phase 3's small trio for the paths of the sweep, the cohort, evidence
+    and sites: run_trio_multi_k at (15, 32, 33) (fused and compacting ks in one sweep),
+    run_cohort of that trio and a second one with the superset, run_evidence to BAM, SAM
+    and FASTQ, and group_sites: identical reports, superset rows and file bytes."""
+    from denovo_kmer_tpu_torch.cohort import TrioPaths, run_cohort, run_trio_multi_k
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.io.synth import TrioSpec, make_trio, write_trio_bams
+    from denovo_kmer_tpu_torch.ops.table import table_to_numpy
+    from denovo_kmer_tpu_torch.pipeline import run_evidence, run_trio
+    from denovo_kmer_tpu_torch.sites import group_sites, write_sites_tsv
+
+    cfg = EngineConfig(k=K, max_read_len=128, batch_reads=1024, accum_batches=1,
+                       table_capacity=1 << 16)
+    trio = (paths["mom"], paths["dad"], paths["child"])
+    second = write_trio_bams(make_trio(TrioSpec(genome_len=20000, seed=1)),
+                             os.path.join(work, "small_b"))
+    trios = [TrioPaths("a", *trio), TrioPaths("b", second["mom"], second["dad"],
+                                               second["child"])]
+    tsv = os.path.join(work, "small", "candidates.tsv")
+    with open(tsv, "w") as f:
+        f.write(run_trio(*trio, cfg, device="cuda").report)
+
+    def evidence_bytes(dev):
+        out = {}
+        for ext in ("bam", "sam", "fastq"):
+            path = os.path.join(work, "small", f"ev_{dev}.{ext}")
+            run_evidence(paths["child"], tsv, cfg, path, device=dev)
+            with open(path, "rb") as f:
+                out[ext] = f.read()
+        return out
+
+    def sites_bytes(dev):
+        path = os.path.join(work, "small", f"sites_{dev}.tsv")
+        write_sites_tsv(group_sites(paths["child"], tsv, cfg, device=dev), path)
+        with open(path) as f:
+            return f.read()
+
+    def cohort_rows(dev):
+        res, sup = run_cohort(trios, cfg, device=dev)
+        keys, counts, n = table_to_numpy(sup)
+        return ({name: (r.report, r.tables_n) for name, r in res.items()},
+                keys[:n].tobytes(), counts[:n].tobytes())
+
+    runs = {
+        "sweep_15_32_33": lambda dev: {k: (r.report, r.tables_n) for k, r in
+                                       run_trio_multi_k(*trio, cfg, (15, 32, 33),
+                                                        device=dev).items()},
+        "cohort": cohort_rows, "evidence": evidence_bytes, "sites": sites_bytes}
+    out = {}
+    for name, run in runs.items():
+        gpu, wall, launches = run_counted(lambda: run("cuda"))
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        if gpu != cpu:
+            raise AssertionError(f"{name} on cuda != {name} on cpu")
+        if launches["extract_kmers"] == 0:
+            raise AssertionError(f"{name} launched no extraction on the card")
+        if name.startswith("sweep") and not all(r[0].count("\n") > 1 for r in gpu.values()):
+            raise AssertionError("a k of the small sweep called no candidate")
+        out[name] = {"cuda_s": wall, "cpu_s": cpu_s, "launches": launches["extract_kmers"]}
+    emit({"phase": "parity_sweep_cohort_evidence", **out})
+
+
 # ---------------------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------------------
@@ -689,18 +774,27 @@ def sample_reads(rng, genome, n_rate, n=N_READS):
 
 
 def write_bam(path, name, codes, pos, rev, genome_len, lens=None):
-    """One BAM record a row of ``codes``; ``lens`` trims row i to its first lens[i] bases."""
+    """One BAM record a row of ``codes`` (reads as sequenced); ``lens`` trims row i to its
+    first lens[i] bases. A reverse-strand read is stored as an aligner stores it: in
+    reference orientation (the trimmed read reverse-complemented), at the reference position
+    of its first stored base."""
     from denovo_kmer_tpu_torch.io.bam import BamRecord, BamWriter
 
-    text = np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
+    alphabet = np.frombuffer(b"ACGTN", np.uint8)
+    text = alphabet[codes].tobytes().decode()
+    # row i reverse-complemented: its trimmed read's reverse complement is the row's last n
+    text_rc = alphabet[np.where(codes < 4, 3 - codes, 4)[:, ::-1]].tobytes().decode()
     L = codes.shape[1]
     with open(path, "wb") as f, BamWriter(f, references=[("chrS", genome_len)],
                                           level=1) as w:
         for i in range(codes.shape[0]):
             n = L if lens is None else int(lens[i])
+            if rev[i]:
+                seq, start = text_rc[i * L + L - n:(i + 1) * L], int(pos[i]) + L - n
+            else:
+                seq, start = text[i * L:i * L + n], int(pos[i])
             w.write(BamRecord(name=f"{name}_r{i}", flag=0x10 if rev[i] else 0, refid=0,
-                              pos=int(pos[i]), mapq=60, cigar=((n, 0),),
-                              seq=text[i * L:i * L + n]))
+                              pos=start, mapq=60, cigar=((n, 0),), seq=seq))
 
 
 def write_mixed_trio(rng, outdir, genome=None, child_genome=None, genome_len=None,
@@ -741,23 +835,91 @@ def python_feeder():
         native.native_available = real
 
 
-def reference_counts(codes):
-    """Host numpy reference: unique canonical k-mer values of every valid window, counts."""
+def window_words(codes, k):
+    """Host numpy: the canonical k-mer of every window of every row of ``codes`` as (hi, lo)
+    uint64 (n, P) halves of its 2k-bit value (hi None where k <= 32), and whether the window
+    holds no N (n, P) bool. Windows of 2^i bases are built by doubling and joined by the
+    bits of k, so the cost grows with log k."""
     n, L = codes.shape
-    P = L - K + 1
+    P = L - k + 1
     c = np.minimum(codes, 3).astype(np.uint64)
-    fwd = np.zeros((n, P), np.uint64)
-    rc = np.zeros((n, P), np.uint64)
-    for j in range(K):
-        fwd = (fwd << np.uint64(2)) | c[:, j:j + P]
-        rc |= (np.uint64(3) - c[:, j:j + P]) << np.uint64(2 * j)
+    # fwd[m][:, j]: bases j..j+m-1, first base most significant; rc[m][:, j]: its reverse
+    # complement, (3 - base j+i) at bits 2i
+    fwd, rc, m = {1: c}, {1: np.uint64(3) - c}, 1
+    while 2 * m <= min(k, 32):
+        f, r = fwd[m], rc[m]
+        fwd[2 * m] = (f[:, :-m] << np.uint64(2 * m)) | f[:, m:]
+        rc[2 * m] = r[:, :-m] | (r[:, m:] << np.uint64(2 * m))
+        m *= 2
+
+    def window(length, start):
+        """(fwd, rc) of the windows of ``length`` <= 32 bases from base ``start`` on, P of
+        them."""
+        f = r = None
+        at = 0
+        for p in sorted(fwd, reverse=True):
+            if length - at < p:
+                continue
+            fp = fwd[p][:, start + at:start + at + P]
+            rp = rc[p][:, start + at:start + at + P]
+            if f is None:
+                f, r = fp, rp
+            else:
+                f = (f << np.uint64(2 * p)) | fp
+                r = r | (rp << np.uint64(2 * at))
+            at += p
+        return f, r
+
+    if k <= 32:
+        f, r = window(k, 0)
+        hi, lo = None, np.minimum(f, r)
+    else:
+        fh, rl = window(k - 32, 0)[0], window(32, 0)[1]
+        fl, rh = window(32, k - 32)[0], window(k - 32, 32)[1]
+        take_rc = (rh < fh) | ((rh == fh) & (rl < fl))
+        hi, lo = np.where(take_rc, rh, fh), np.where(take_rc, rl, fl)
     bad = np.concatenate([np.zeros((n, 1), np.int32),
                           np.cumsum(codes == 4, axis=1, dtype=np.int32)], axis=1)
-    valid = (bad[:, K:K + P] - bad[:, :P]) == 0
-    vals = np.minimum(fwd, rc)[valid]
-    del fwd, rc
-    keys, counts = np.unique(vals, return_counts=True)
-    return keys, counts, int(valid.sum())
+    return hi, lo, (bad[:, k:k + P] - bad[:, :P]) == 0
+
+
+def window_values(codes, k=K):
+    """Host numpy, k <= 32: the canonical k-mer value of every window of every row of
+    ``codes`` (n, P) uint64, and whether the window holds no N (n, P) bool."""
+    assert k <= 32
+    _, lo, valid = window_words(codes, k)
+    return lo, valid
+
+
+def reference_counts(codes, k=K):
+    """Host numpy reference: unique canonical k-mers of every valid window (uint64 values
+    where k <= 32, else (m, 2) uint64 (hi, lo) rows, ascending), their counts, and the
+    number of valid windows."""
+    hi, lo, valid = window_words(codes, k)
+    if hi is None:
+        keys, counts = np.unique(lo[valid], return_counts=True)
+        return keys, counts, int(valid.sum())
+    rows = np.stack([hi[valid], lo[valid]], axis=1)
+    del hi, lo
+    rows = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+    start = np.ones(rows.shape[0], bool)
+    start[1:] = (rows[1:] != rows[:-1]).any(axis=1)
+    at = np.nonzero(start)[0]
+    return rows[at], np.diff(np.append(at, rows.shape[0])), int(valid.sum())
+
+
+def _rows_in(a, b):
+    """Which rows of ``a`` are rows of ``b`` (each (m, 2), rows unique within each)."""
+    both = np.concatenate([a, b])
+    order = np.lexsort((both[:, 1], both[:, 0]))
+    s = both[order]
+    eq = (s[1:] == s[:-1]).all(axis=1)
+    dup = np.zeros(s.shape[0], bool)
+    dup[1:] |= eq
+    dup[:-1] |= eq
+    hit = np.empty_like(dup)
+    hit[order] = dup
+    return hit[:a.shape[0]]
 
 
 def canonical_of(window_codes):
@@ -767,6 +929,33 @@ def canonical_of(window_codes):
         v = (v << 2) | int(c)
         r |= (3 - int(c)) << (2 * j)
     return min(v, r)
+
+
+def snvs_missed(candidates, genome, snvs, k=K):
+    """Planted SNVs with no candidate among the k-mers over them."""
+    found = {v for v, _, _, _ in candidates}
+    return [int(p) for p in snvs
+            if not any(canonical_of(genome[st:st + k]) in found for st in range(p - k + 1, p + 1))]
+
+
+def reference_candidates(ref, cfg):
+    """The trio call on the host references ({sample: reference_counts(...)}): child k-mers
+    with count >= min_child_count absent from both parents, as (value, child, 0, 0)."""
+    ck, cc = ref["child"][:2]
+    if ck.ndim == 1:
+        cand = ((cc >= cfg.min_child_count) & ~np.isin(ck, ref["mom"][0])
+                & ~np.isin(ck, ref["dad"][0]))
+        return [(int(v), int(c), 0, 0) for v, c in zip(ck[cand], cc[cand])]
+    cand = ((cc >= cfg.min_child_count) & ~_rows_in(ck, ref["mom"][0])
+            & ~_rows_in(ck, ref["dad"][0]))
+    return [((int(h) << 64) | int(v), int(c), 0, 0) for (h, v), c in zip(ck[cand], cc[cand])]
+
+
+def cli_flags(cfg):
+    """The engine flags of ``cfg`` for the CLI, on the card."""
+    return ["-k", str(cfg.k), "--max-read-len", str(cfg.max_read_len), "--batch-reads",
+            str(cfg.batch_reads), "--table-capacity", str(cfg.table_capacity), "--device",
+            "cuda"]
 
 
 def check_table(table, ref_keys, ref_counts, n_windows, capacity, name):
@@ -841,18 +1030,13 @@ def phase_main(rng, work):
                         cfg.table_capacity, name)
         if n != res.tables_n[name]:
             raise AssertionError(f"{name}: rebuilt n={n} != run_trio's {res.tables_n[name]}")
-    ck, cc = ref["child"][:2]
-    cand = (cc >= cfg.min_child_count) & ~np.isin(ck, ref["mom"][0]) & ~np.isin(ck, ref["dad"][0])
-    want = [(int(v), int(c), 0, 0) for v, c in zip(ck[cand], cc[cand])]
+    want = reference_candidates(ref, cfg)
     if res.candidates != want:
         raise AssertionError(f"candidates differ from the numpy reference "
                              f"({len(res.candidates)} vs {len(want)})")
-    if res.tables_n["child"] != len(ck):
-        raise AssertionError(f"child uniques {res.tables_n['child']} != {len(ck)}")
-    found = {v for v, _, _, _ in res.candidates}
-    missed = [int(s) for s in snvs
-              if not any(canonical_of(child_genome[st:st + K]) in found
-                         for st in range(s - K + 1, s + 1))]
+    if res.tables_n["child"] != len(ref["child"][0]):
+        raise AssertionError(f"child uniques {res.tables_n['child']} != {len(ref['child'][0])}")
+    missed = snvs_missed(res.candidates, child_genome, snvs)
     if missed:
         raise AssertionError(f"planted SNVs under no candidate: {missed}")
     t6 = time.perf_counter()
@@ -895,7 +1079,8 @@ def phase_main(rng, work):
           "python_feeder": {**stages(m_py, t8 - t7), "launches": launches_py,
                             "native_feeder_batches": native_batches_py}})
     return dict(paths=paths, report=res.report, batches=batches, samples=samples, ref=ref,
-                launches=launches)
+                launches=launches, wall_s=t4 - t3, genome=genome, child_genome=child_genome,
+                snvs=snvs, candidates=res.candidates)
 
 
 def _counters():
@@ -1030,9 +1215,7 @@ def phase_checkpoints(rng, work, main):
 
     paths, ref = main["paths"], main["ref"]
     cfg = EngineConfig(**MAIN_CFG)
-    flags = ["-k", str(K), "--max-read-len", str(cfg.max_read_len), "--batch-reads",
-             str(cfg.batch_reads), "--table-capacity", str(cfg.table_capacity), "--device",
-             "cuda"]
+    flags = cli_flags(cfg)
     batches = main["batches"] // 3
     out, npz = {}, {}
     for name in ("mom", "dad"):
@@ -1168,6 +1351,267 @@ def phase_buckets(rng, work, main):
     return out
 
 
+# ---------------------------------------------------------------------------------------
+# phase 7: the multi-k sweep, cohort mode, evidence and sites, at phase 4's width
+# ---------------------------------------------------------------------------------------
+
+SWEEP_KS = (15, 21, 31, 41)
+
+
+@contextlib.contextmanager
+def no_plain_extraction():
+    """Any call of the extraction's plain version fails: on the card every path launches
+    the kernel."""
+    from denovo_kmer_tpu_torch.ops import extract
+
+    real = extract.append_plain
+
+    def refuse(*a, **kw):
+        raise AssertionError("append_plain ran on a path on the card")
+
+    extract.append_plain = refuse
+    try:
+        yield
+    finally:
+        extract.append_plain = real
+
+
+def _add_launches(total, counts):
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def launches_of(module, name, out, carried):
+    """Record in ``out`` the launches and wall seconds of the calls of ``module.name`` (a
+    step inside a larger run, such as the evidence pass of `call --evidence-out`): every
+    count is set to 0 just before each call and read just after. The counts of the larger
+    run go on in ``carried``: what it counted before the call, and the call's own."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        _add_launches(carried, read_launches())
+        reset_launches()
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        reset_launches()
+        out["wall_s"] = out.get("wall_s", 0.0) + time.perf_counter() - t0
+        _add_launches(out.setdefault("launches", {}), counts)
+        _add_launches(carried, counts)
+        return res
+
+    setattr(module, name, wrapped)
+    try:
+        yield out
+    finally:
+        setattr(module, name, real)
+
+
+def phase_sweep(main):
+    """run_trio_multi_k at (15, 21, 31, 41) on phase 4's BAMs: one decode a sample, four
+    extractions a batch. k=31's report is phase 4's; each k's candidates and tables_n
+    equal the numpy reference at that k (from the sampled codes) and run_trio's at that k;
+    every planted SNV lies under a candidate at every k."""
+    from denovo_kmer_tpu_torch.cohort import run_trio_multi_k
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.pipeline import run_trio
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    paths, cfg = main["paths"], EngineConfig(**MAIN_CFG)
+    trio = (paths["mom"], paths["dad"], paths["child"])
+    m = Metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sweep, wall, launches = run_counted(
+        lambda: run_trio_multi_k(*trio, cfg, SWEEP_KS, m, device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    if launches["extract_kmers"] != len(SWEEP_KS) * main["batches"]:
+        raise AssertionError(f"the sweep launched extract_kmers {launches['extract_kmers']} "
+                             f"times for {main['batches']} batches x {len(SWEEP_KS)} ks")
+    if sweep[K].report != main["report"]:
+        raise AssertionError("the sweep's k=31 report differs from phase 4's")
+    t0 = time.perf_counter()
+    for k in SWEEP_KS:
+        ref = main["ref"] if k == K else {
+            name: reference_counts(codes, k) for name, (_, _, codes) in main["samples"].items()}
+        if sweep[k].candidates != reference_candidates(ref, dataclasses.replace(cfg, k=k)):
+            raise AssertionError(f"the sweep at k={k}: candidates differ from the numpy "
+                                 "reference")
+        want_n = {name: len(ref[name][0]) for name in ("mom", "dad", "child")}
+        if sweep[k].tables_n != want_n:
+            raise AssertionError(f"the sweep at k={k}: tables_n {sweep[k].tables_n}, the "
+                                 f"numpy reference {want_n}")
+        del ref
+    check_s = time.perf_counter() - t0
+    singles = {}
+    for k in SWEEP_KS:
+        mk = Metrics()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall_k, launches_k = run_counted(
+            lambda: run_trio(*trio, dataclasses.replace(cfg, k=k), mk, device="cuda"))
+        if (res.report, res.tables_n) != (sweep[k].report, sweep[k].tables_n):
+            raise AssertionError(f"the sweep at k={k} differs from run_trio at k={k}")
+        missed = snvs_missed(sweep[k].candidates, main["child_genome"], main["snvs"], k)
+        if missed:
+            raise AssertionError(f"planted SNVs under no candidate at k={k}: {missed}")
+        singles[k] = {"wall_s": wall_k, "feed_wait_s": mk.seconds.get("feed_wait", 0.0),
+                      "launches": launches_k["extract_kmers"],
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                      "candidates": len(res.candidates), "tables_n": res.tables_n}
+    out = {"ks": list(SWEEP_KS), "wall_s": wall, "feed_wait_s": m.seconds.get("feed_wait", 0.0),
+           "peak_device_bytes": peak, "launches": launches, "reference_check_s": check_s,
+           "reads_ingested": m.counters["reads_ingested"],
+           "kmers_extracted": m.counters["kmers_extracted"],
+           **{f"{key}_s": v for key, v in sorted(m.seconds.items()) if key != "feed_wait"},
+           "run_trio_sum_wall_s": sum(r["wall_s"] for r in singles.values()),
+           "run_trio_sum_feed_wait_s": sum(r["feed_wait_s"] for r in singles.values()),
+           "run_trio": singles}
+    emit({"phase": "sweep", "config": MAIN_CFG, **out})
+    return out
+
+
+def phase_cohort(rng, work, main):
+    """`cohort` through the CLI with a manifest of two trios on phase 4's genome: phase 4's
+    and a trio B with its own planted SNVs, whose run_trio candidates equal the numpy
+    reference. Each trio's TSV equals its run_trio report and the parental superset equals
+    the numpy union of the four parents' counts."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.pipeline import run_trio
+
+    cfg = EngineConfig(**MAIN_CFG)
+    t0 = time.perf_counter()
+    genome = main["genome"]
+    child_b = genome.copy()
+    snvs_b = np.sort(rng.choice(np.arange(1000, GENOME_LEN - 1000), N_SNVS, replace=False))
+    child_b[snvs_b] = (child_b[snvs_b] + rng.integers(1, 4, N_SNVS)) % 4
+    samples_b = {"mom": sample_reads(rng, genome, 0.0), "dad": sample_reads(rng, genome, 0.0),
+                 "child": sample_reads(rng, child_b, 0.001)}
+    os.makedirs(os.path.join(work, "trio_b"), exist_ok=True)
+    paths_b = {}
+    for name, (pos, rev, codes) in samples_b.items():
+        paths_b[name] = os.path.join(work, "trio_b", f"{name}.bam")
+        write_bam(paths_b[name], f"{name}_b", codes, pos, rev, GENOME_LEN)
+    data_s = time.perf_counter() - t0
+    res_b, wall_b, _ = run_counted(
+        lambda: run_trio(paths_b["mom"], paths_b["dad"], paths_b["child"], cfg, device="cuda"))
+    ref_b = {name: reference_counts(codes) for name, (_, _, codes) in samples_b.items()}
+    if res_b.candidates != reference_candidates(ref_b, cfg):
+        raise AssertionError("trio B: candidates differ from the numpy reference")
+    # a planted SNV under no candidate is reported with the reading that explains it: the
+    # child reads over it and the child counts of the k-mers over it (numpy reference)
+    child_keys, child_counts = ref_b["child"][:2]
+    child_pos = samples_b["child"][0]
+    missed_b = []
+    for p in snvs_missed(res_b.candidates, child_b, snvs_b):
+        vals = np.array([canonical_of(child_b[st:st + K]) for st in range(p - K + 1, p + 1)],
+                        np.uint64)
+        at = np.minimum(np.searchsorted(child_keys, vals), len(child_keys) - 1)
+        counts = np.where(child_keys[at] == vals, child_counts[at], 0)
+        missed_b.append({"pos": int(p), "min_child_count": cfg.min_child_count,
+                         "child_reads_over": int(((child_pos <= p)
+                                                  & (p < child_pos + READ_LEN)).sum()),
+                         "child_kmer_counts": [int(c) for c in counts]})
+
+    pa = main["paths"]
+    manifest = os.path.join(work, "cohort.tsv")
+    with open(manifest, "w") as f:
+        f.write(f"A\t{pa['mom']}\t{pa['dad']}\t{pa['child']}\n"
+                f"B\t{paths_b['mom']}\t{paths_b['dad']}\t{paths_b['child']}\n")
+    outdir = os.path.join(work, "cohort")
+    torch.cuda.reset_peak_memory_stats()
+    _, wall, launches = run_counted(lambda: _cli(
+        ["cohort", manifest, "-o", outdir, "--accum-batches", str(cfg.accum_batches),
+         *cli_flags(cfg)]))
+    peak = torch.cuda.max_memory_allocated()
+    if launches["extract_kmers"] != 2 * main["batches"]:
+        raise AssertionError(f"the cohort launched extract_kmers {launches['extract_kmers']} "
+                             f"times for 2 x {main['batches']} batches")
+    for name, want in (("A", main["report"]), ("B", res_b.report)):
+        with open(os.path.join(outdir, f"{name}.candidates.tsv")) as f:
+            if f.read() != want:
+                raise AssertionError(f"cohort trio {name}: TSV differs from its run_trio report")
+
+    keys, counts, meta = _npz(os.path.join(outdir, "parental_superset.npz"))
+    refs = [main["ref"]["mom"], main["ref"]["dad"], ref_b["mom"], ref_b["dad"]]
+    union, inverse = np.unique(np.concatenate([r[0] for r in refs]), return_inverse=True)
+    union_counts = np.zeros(union.shape[0], np.int64)
+    np.add.at(union_counts, inverse, np.concatenate([r[1] for r in refs]).astype(np.int64))
+    vals = (keys[:, 0].astype(np.uint64) << np.uint64(32)) | keys[:, 1].astype(np.uint64)
+    if meta["n"] != union.shape[0] or not (np.array_equal(vals, union)
+                                           and np.array_equal(counts, union_counts)):
+        raise AssertionError("the parental superset differs from the numpy union")
+    out = {"trios": 2, "data_s": data_s, "wall_s": wall, "launches": launches,
+           "peak_device_bytes": peak, "superset_n": meta["n"],
+           "candidates": {"A": main["report"].count("\n") - 1,
+                          "B": len(res_b.candidates)},
+           "trio_b_snvs_under_no_candidate": missed_b,
+           "run_trio_b_wall_s": wall_b}
+    emit({"phase": "cohort", "config": MAIN_CFG, **out})
+    return out
+
+
+def phase_evidence_sites(work, main):
+    """`call --evidence-out ev.bam --sites-out sites.tsv` through the CLI on phase 4's
+    trio: the evidence BAM holds exactly the child reads with a valid window whose canonical
+    k-mer is a candidate (numpy, from the sampled codes), and every planted SNV lies inside
+    a chrS site, each of which holds one."""
+    from denovo_kmer_tpu_torch import pipeline, sites
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.io.bam import read_bam_records
+
+    cfg = EngineConfig(**MAIN_CFG)
+    pa = main["paths"]
+    cands, ev_bam, sites_tsv = (os.path.join(work, n)
+                                for n in ("call.tsv", "evidence.bam", "sites.tsv"))
+    ev_stats, site_stats, call_launches = {}, {}, {}
+    with launches_of(pipeline, "run_evidence", ev_stats, call_launches), \
+            launches_of(sites, "group_sites", site_stats, call_launches):
+        _, wall, rest = run_counted(lambda: _cli(
+            ["call", "--mom", pa["mom"], "--dad", pa["dad"], "--child", pa["child"],
+             "-o", cands, "--evidence-out", ev_bam, "--sites-out", sites_tsv,
+             "--accum-batches", str(cfg.accum_batches), *cli_flags(cfg)]))
+    _add_launches(call_launches, rest)
+    launches = {"call_evidence_sites": call_launches, "evidence": ev_stats["launches"],
+                "sites": site_stats["launches"]}
+    per_batch = main["batches"] // 3
+    want = {"call_evidence_sites": main["batches"] + 2 * per_batch, "evidence": per_batch,
+            "sites": per_batch}
+    got = {name: v["extract_kmers"] for name, v in launches.items()}
+    if got != want:
+        raise AssertionError(f"extract_kmers launches {got}, expected {want}")
+    with open(cands) as f:
+        if f.read() != main["report"]:
+            raise AssertionError("call --evidence-out: the report differs from phase 4's")
+
+    t0 = time.perf_counter()
+    vals, valid = window_values(main["samples"]["child"][2])
+    cand_vals = np.array(sorted(v for v, _, _, _ in main["candidates"]), np.uint64)
+    hit = (np.isin(vals, cand_vals) & valid).any(axis=1)
+    del vals, valid
+    want_names = {f"child_r{i}" for i in np.nonzero(hit)[0]}
+    got_names = [r.name for r in read_bam_records(ev_bam)]
+    if len(got_names) != len(set(got_names)) or set(got_names) != want_names:
+        raise AssertionError(f"evidence: {len(got_names)} reads, the reference "
+                             f"{len(want_names)}")
+    rows = [line.split("\t") for line in open(sites_tsv).read().splitlines()[1:]]
+    spans = [(ref, int(a), int(b)) for ref, a, b, *_ in rows]
+    snvs = main["snvs"]
+    if not spans or any(ref != "chrS" for ref, _, _ in spans):
+        raise AssertionError(f"sites off the reference: {spans[:5]}")
+    if any(not any(a <= p < b for _, a, b in spans) for p in snvs):
+        raise AssertionError("a planted SNV lies inside no site")
+    if any(not any(a <= p < b for p in snvs) for _, a, b in spans):
+        raise AssertionError("a site holds no planted SNV")
+    out = {"wall_s": wall, "launches": launches, "evidence_reads": len(got_names),
+           "sites": len(spans), "evidence_wall_s": ev_stats["wall_s"],
+           "sites_wall_s": site_stats["wall_s"], "check_s": time.perf_counter() - t0}
+    emit({"phase": "evidence_sites", "config": MAIN_CFG, **out})
+    return out
+
+
 def device_time(prof, trace_path, wall_s):
     """Device activity of a profiled run, from its Chrome trace: busy seconds (the union of
     every kernel, copy and memset interval), summed seconds by kind and for the costliest
@@ -1251,13 +1695,18 @@ def main() -> int:
     sort_case = phase_block_sort()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
     try:
-        phase_parity(work)
+        small = phase_parity(work)
         phase_parity_buckets(work)
+        phase_parity_slice(work, small)
         main_run = phase_main(rng, work)
         multipass = phase_multipass(work, main_run["paths"], main_run["report"],
                                     main_run["batches"])
         ckpt = phase_checkpoints(rng, work, main_run)
         buckets = phase_buckets(rng, work, main_run)
+        with no_plain_extraction():
+            sweep = phase_sweep(main_run)
+            cohort = phase_cohort(rng, work, main_run)
+            evidence = phase_evidence_sites(work, main_run)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1271,7 +1720,9 @@ def main() -> int:
                **{name: r["launches"] for name, r in multipass.items()},
                **{name: r["launches"] for name, r in buckets.items()},
                "run_trio_npz": ckpt["run_trio_npz"]["launches"],
-               "count_mom": ckpt["count_mom"]["launches"]}
+               "count_mom": ckpt["count_mom"]["launches"],
+               "sweep": sweep["launches"], "cohort": cohort["launches"],
+               **evidence["launches"]}
     emit({"kernels": [{
         "name": "extract_kmers", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",

@@ -10,7 +10,8 @@ the caller passes ``device="cpu"``.
   the fused trio call, the multipass spill (partition kernel ``csrc/radix_partition.cu``)
 - ``parallel/`` the hash router (pass and shard buckets)
 - ``oracle/``   scalar ground truth for SPEC_SEMANTICS.md
-- ``pipeline``  end-to-end orchestration; ``cli`` the user entry point
+- ``pipeline``  end-to-end orchestration and candidate evidence; ``cohort`` multi-k sweeps
+  and cohort mode; ``sites`` candidate-site grouping; ``cli`` the user entry point
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,14 @@ Subcommands (the same flags and output as ``python -m denovo_kmer_tpu``):
                 splits the key space into N hash passes: alone it re-decodes the reads
                 every pass; with ``--spill DIR`` (host files, resumable) or ``--spill-rows
                 N`` (a device store of N rows a pass) it decodes once and spills. A parent
-                given as a ``count`` checkpoint (``.npz``) is loaded, not built
+                given as a ``count`` checkpoint (``.npz``) is loaded, not built.
+                ``--evidence-out`` / ``--sites-out`` also run ``evidence`` / ``sites`` on
+                the candidates
+    sweep       multi-k sweep over one trio (``--ks 15,21,31,41``): one decode a sample
+    cohort      N trios (a manifest, or ``--ped``) through one engine, with the parental
+                superset table
+    evidence    the child reads holding any candidate k-mer, to BAM, SAM or FASTQ
+    sites       group a candidate TSV into loci using the child reads' evidence
     count       build one sample's table and save it as an ``.npz`` checkpoint
                 (``--resume``: mid-pass resume from ``<output>.resume.npz``)
     probe       query k-mer counts in a ``count`` checkpoint (``--kmers`` or stdin)
@@ -16,8 +23,7 @@ Subcommands (the same flags and output as ``python -m denovo_kmer_tpu``):
 
 ``--read-len-buckets 64,112,160`` packs and extracts each read at the smallest width that
 holds it; ``--ingest-threads N`` sets the C++ BAM feeder's decode threads. Flags of paths
-not ported yet (mesh, regions, evidence, sites, profiling) exit non-zero and name
-ROADMAP.md.
+not ported yet (mesh, regions, profiling) exit non-zero and name ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -113,8 +119,6 @@ def _reject_unported(args) -> None:
         ("--region", getattr(args, "region", None) is not None),
         ("--regions-bed", getattr(args, "regions_bed", None) is not None),
         ("--profile-dir", getattr(args, "profile_dir", None) is not None),
-        ("--evidence-out", getattr(args, "evidence_out", None) is not None),
-        ("--sites-out", getattr(args, "sites_out", None) is not None),
     ]
     for flag, given in unported:
         if given:
@@ -223,6 +227,199 @@ def cmd_call(args) -> int:
         f"child={result.tables_n['child']})",
         file=sys.stderr,
     )
+    if args.evidence_out or args.sites_out:
+        _evidence_after_call(args, cfg, result)
+    return 0
+
+
+def _evidence_after_call(args, cfg, result) -> None:
+    """Right after the call, one more pass over the child for each output asked for: the
+    supporting-read subset (``pipeline.run_evidence``) and the per-locus site grouping
+    (``sites.group_sites``), each decoding the child again, both from the candidate TSV
+    (staged in a temporary file for stdout or FASTA output)."""
+    import tempfile
+
+    if args.output != "-" and args.output_format == "tsv":
+        tsv = args.output
+        tmp = None
+    else:
+        from denovo_kmer_tpu_torch.oracle.scalar import decode_kmer
+
+        tmp = tempfile.NamedTemporaryFile("w", suffix=".tsv", delete=False)
+        tmp.write("#kmer\tchild_count\tmom_count\tdad_count\n")
+        for v, cc, mc, dc in result.candidates:
+            tmp.write(f"{decode_kmer(v, cfg.k)}\t{cc}\t{mc}\t{dc}\n")
+        tmp.close()
+        tsv = tmp.name
+    try:
+        if args.evidence_out:
+            from denovo_kmer_tpu_torch.pipeline import run_evidence
+
+            ev = run_evidence(args.child, tsv, cfg, args.evidence_out, device=args.device)
+            print(f"evidence: {ev.n_reads_matched}/{ev.n_reads_scanned} "
+                  f"reads -> {ev.out_path}", file=sys.stderr)
+        if args.sites_out:
+            from denovo_kmer_tpu_torch.sites import group_sites, write_sites_tsv
+
+            sites = group_sites(args.child, tsv, cfg, device=args.device)
+            write_sites_tsv(sites, args.sites_out)
+            print(f"sites: {len(result.candidates)} candidate k-mers -> "
+                  f"{len(sites)} loci -> {args.sites_out}", file=sys.stderr)
+    finally:
+        if tmp is not None:
+            os.unlink(tmp.name)
+
+
+def cmd_sweep(args) -> int:
+    """Multi-k sweep (BASELINE.json config 4): one decode pass, per-k tables + reports."""
+    from denovo_kmer_tpu_torch.cohort import run_trio_multi_k
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    _reject_unported(args)
+    cfg = _cfg_from_args(args)
+    try:
+        distinct = (args.output_pattern.format(k=1) != args.output_pattern.format(k=2))
+    except (KeyError, IndexError, ValueError):
+        distinct = False
+    if not distinct:
+        raise SystemExit(
+            "--output-pattern must contain a '{k}' placeholder (e.g. "
+            "candidates.k{k}.tsv) — otherwise every k would overwrite the same file"
+        )
+    _reject_multipass_flags(args)
+    ks = [int(x) for x in args.ks.split(",")]
+    metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
+    results = run_trio_multi_k(args.mom, args.dad, args.child, cfg, ks, metrics,
+                               device=args.device)
+    for k, res in sorted(results.items()):
+        path = args.output_pattern.format(k=k)
+        with open(path, "w") as f:
+            f.write(res.report)
+        print(f"k={k}: {len(res.candidates)} candidates -> {path}", file=sys.stderr)
+    print(metrics.summary(), file=sys.stderr)
+    return 0
+
+
+def _trios_from_ped(ped_path: str, sample_map: str, bam_dir: str):
+    """Standard 6-column PED (fam iid father mother sex phenotype; '0' = parent unknown) →
+    TrioPaths list: one trio per individual with BOTH parents listed. Reads files resolve
+    through --sample-map (sample_id<TAB>path) or --bam-dir/<iid>.bam|.cram."""
+    from denovo_kmer_tpu_torch.cohort import TrioPaths
+
+    if (sample_map is None) == (bam_dir is None):
+        raise SystemExit("--ped needs exactly one of --sample-map or --bam-dir")
+    paths = {}
+    if sample_map is not None:
+        with open(sample_map) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                sid, _, p = line.partition("\t")
+                paths[sid] = p
+
+    def resolve(sid: str) -> str:
+        if sample_map is not None:
+            try:
+                return paths[sid]
+            except KeyError:
+                raise SystemExit(f"--sample-map has no entry for {sid!r}") from None
+        for ext in (".bam", ".cram"):
+            p = os.path.join(bam_dir, sid + ext)
+            if os.path.exists(p):
+                return p
+        raise SystemExit(f"no {sid}.bam/.cram under {bam_dir!r}")
+
+    trios = []
+    with open(ped_path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            cols = line.split()
+            if len(cols) < 6:
+                raise SystemExit(
+                    f"{ped_path}:{lineno}: PED needs 6 whitespace-separated "
+                    f"columns (fam iid father mother sex phenotype)")
+            fam, iid, father, mother = cols[0], cols[1], cols[2], cols[3]
+            if father == "0" or mother == "0":
+                continue  # founder / single-parent rows are not trios
+            trios.append(TrioPaths(
+                name=f"{fam}_{iid}",
+                mom=resolve(mother), dad=resolve(father), child=resolve(iid),
+            ))
+    return trios
+
+
+def cmd_cohort(args) -> int:
+    """Cohort mode (BASELINE.json config 5): N trios through one engine.
+
+    Manifest: TSV lines `name<TAB>mom<TAB>dad<TAB>child` (# comments allowed)."""
+    from denovo_kmer_tpu_torch.cohort import TrioPaths, run_cohort
+    from denovo_kmer_tpu_torch.utils.checkpoint import save_table
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    _reject_unported(args)
+    cfg = _cfg_from_args(args)
+    if (args.manifest is None) == (args.ped is None):
+        raise SystemExit("cohort needs exactly one of: a manifest, or --ped")
+    trios = []
+    if args.ped is not None:
+        trios = _trios_from_ped(args.ped, args.sample_map, args.bam_dir)
+    else:
+        with open(args.manifest) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                name, mom, dad, child = line.split("\t")
+                trios.append(TrioPaths(name=name, mom=mom, dad=dad, child=child))
+    if not trios:
+        raise SystemExit("cohort: no trios found in the input")
+    _reject_multipass_flags(args)
+    metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
+    os.makedirs(args.outdir, exist_ok=True)
+    results, superset = run_cohort(trios, cfg, metrics,
+                                   build_parental_superset=not args.no_superset,
+                                   device=args.device)
+    for name, res in results.items():
+        path = os.path.join(args.outdir, f"{name}.candidates.tsv")
+        with open(path, "w") as f:
+            f.write(res.report)
+        print(f"{name}: {len(res.candidates)} candidates -> {path}", file=sys.stderr)
+    if superset is not None:
+        sup_path = os.path.join(args.outdir, "parental_superset.npz")
+        save_table(sup_path, superset, cfg, source=args.manifest)
+        print(f"parental superset: {int(superset.n)} k-mers -> {sup_path}",
+              file=sys.stderr)
+    print(metrics.summary(), file=sys.stderr)
+    return 0
+
+
+def cmd_evidence(args) -> int:
+    """The child reads supporting candidate k-mers (the reviewable evidence subset: IGV,
+    local reassembly), through the extraction kernel and the candidate probe
+    (``pipeline.run_evidence``)."""
+    from denovo_kmer_tpu_torch.pipeline import run_evidence
+
+    _reject_unported(args)
+    cfg = _cfg_from_args(args)
+    res = run_evidence(args.child, args.candidates, cfg, args.output,
+                       per_candidate_out=args.per_candidate, device=args.device)
+    print(f"evidence: {res.n_reads_matched}/{res.n_reads_scanned} reads -> "
+          f"{res.out_path}", file=sys.stderr)
+    return 0
+
+
+def cmd_sites(args) -> int:
+    """Candidate-site reporter over an existing candidate TSV (``sites.group_sites``)."""
+    from denovo_kmer_tpu_torch.sites import group_sites, write_sites_tsv
+
+    _reject_unported(args)
+    cfg = _cfg_from_args(args)
+    sites = group_sites(args.child, args.candidates, cfg, device=args.device)
+    write_sites_tsv(sites, args.output)
+    print(f"sites: {len(sites)} loci -> {args.output}", file=sys.stderr)
     return 0
 
 
@@ -333,10 +530,66 @@ def main(argv=None) -> int:
     pc.add_argument("--dad", required=True, help="father reads (BAM/FASTQ/FASTA)")
     pc.add_argument("--child", required=True)
     pc.add_argument("-o", "--output", default="-")
-    pc.add_argument("--evidence-out", default=None, help=f"supporting reads ({_NOT_YET})")
-    pc.add_argument("--sites-out", default=None, help=f"per-site TSV ({_NOT_YET})")
+    pc.add_argument("--evidence-out", default=None,
+                    help="also write the child reads supporting any candidate "
+                         "to this BAM/SAM/FASTQ (one extra pass; see `evidence`)")
+    pc.add_argument("--sites-out", default=None,
+                    help="also group overlapping candidate k-mers into loci via "
+                         "the evidence reads' positions and write a per-site TSV "
+                         "(ref, span, member k-mers, read support)")
     _add_engine_args(pc)
     pc.set_defaults(fn=cmd_call)
+
+    psite = sub.add_parser(
+        "sites", help="group an existing candidate TSV into loci using the "
+                      "child reads' evidence (candidate-site reporter)")
+    psite.add_argument("child", help="child reads (BAM/FASTQ/FASTA)")
+    psite.add_argument("candidates", help="candidate TSV from `call`")
+    psite.add_argument("-o", "--output", required=True)
+    _add_engine_args(psite)
+    psite.set_defaults(fn=cmd_sites)
+
+    pw = sub.add_parser("sweep", help="multi-k sweep over one trio (one decode pass)")
+    pw.add_argument("--mom", required=True)
+    pw.add_argument("--dad", required=True)
+    pw.add_argument("--child", required=True)
+    pw.add_argument("--ks", default="15,21,31,41",
+                    help="comma-separated k values (default %(default)s)")
+    pw.add_argument("-o", "--output-pattern", default="candidates.k{k}.tsv",
+                    help="per-k output path pattern (default %(default)s)")
+    _add_engine_args(pw)
+    pw.set_defaults(fn=cmd_sweep)
+
+    ph = sub.add_parser("cohort", help="N trios through one engine")
+    ph.add_argument("manifest", nargs="?", default=None,
+                    help="TSV: name<TAB>mom<TAB>dad<TAB>child per line (or use --ped)")
+    ph.add_argument("--ped", default=None,
+                    help="6-column PED pedigree (fam iid father mother sex phenotype); "
+                         "every individual with both parents listed becomes a trio. "
+                         "Sample files resolve via --sample-map or --bam-dir/<iid>.bam")
+    ph.add_argument("--sample-map", default=None,
+                    help="TSV: sample_id<TAB>reads_path (with --ped)")
+    ph.add_argument("--bam-dir", default=None,
+                    help="directory holding <sample_id>.bam (with --ped)")
+    ph.add_argument("-o", "--outdir", required=True)
+    ph.add_argument("--no-superset", action="store_true",
+                    help="skip the cohort parental superset table")
+    _add_engine_args(ph)
+    ph.set_defaults(fn=cmd_cohort)
+
+    pe = sub.add_parser(
+        "evidence", help="write the child reads containing any candidate k-mer "
+                         "(forward or reverse complement) to a BAM, SAM or FASTQ")
+    pe.add_argument("--child", required=True, help="child reads (BAM/FASTQ/FASTA)")
+    pe.add_argument("--candidates", required=True,
+                    help="candidate TSV from `call` (first column = k-mer)")
+    pe.add_argument("-o", "--output", required=True,
+                    help="output path (.bam, .sam, or .fastq/.fq)")
+    pe.add_argument("--per-candidate", default=None,
+                    help="also write a TSV mapping each candidate k-mer to its "
+                         "supporting read names")
+    _add_engine_args(pe)
+    pe.set_defaults(fn=cmd_evidence)
 
     pk = sub.add_parser("count", help="build and persist one sample's k-mer table")
     pk.add_argument("reads")

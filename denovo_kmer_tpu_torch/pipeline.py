@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,6 +138,8 @@ def _record_stream(path: str, cfg: EngineConfig, region: Optional[str] = None) -
     """Open a reads file as a record stream (BAM/FASTQ/FASTA by extension)."""
     if region:
         raise NotImplementedError(f"--region: {_NOT_YET}")
+    if "://" in path:
+        raise NotImplementedError(f"remote input ({path}): {_NOT_YET}")
     low = path.lower()
     if low.endswith(".bam"):
         return read_bam_records(path)
@@ -206,50 +208,92 @@ def _bucketed_stream(source, cfg: EngineConfig, region: Optional[str] = None):
     return pack_records_bucketed(source, cfg)
 
 
-def _fold_stream(items: Iterable, cfg: EngineConfig, steps: dict, acc, state, flush_fn,
-                 m: Metrics, timer: str = "extract_probe", after_flush=None,
-                 final_flush: bool = True):
+@dataclasses.dataclass
+class FoldLane:
+    """One staging buffer of the fold loop: a config's ingest steps by bucket width
+    (``steps[width](acc, packed) -> acc`` appends a batch's windows to ``acc``), the staging
+    buffer, the state it folds into, and ``flush_fn(acc, state) -> (acc, state)``.
+    ``final_flush`` folds what is staged when the stream ends (False leaves the last window
+    for the fused call). A multi-k sweep runs one lane a k over one stream."""
+
+    cfg: EngineConfig
+    steps: dict
+    acc: object
+    state: object
+    flush_fn: Callable
+    final_flush: bool = True
+    fill: int = 0
+
+
+def _fold_stream(items: Iterable, lanes: Sequence[FoldLane], m: Metrics,
+                 timer: str = "extract_probe", after_flush=None) -> None:
     """The LSM fold loop of every streaming build. ``items`` are placed (bucket_width,
     PackedReads) pairs; an unbucketed stream is the one-width case (``cfg.max_read_len``).
-    ``steps[width]`` appends a batch's windows to the staging buffer ``acc``, and
-    ``flush_fn(acc, state) -> (acc, state)`` folds the staging buffer into ``state`` when the
-    next batch would not fit in it (flushes follow staged windows, since a batch stages
-    width-proportional rows). ``after_flush(state)`` runs after each flush inside the stream,
-    before the next batch is extracted; ``final_flush`` folds what is staged when the stream
-    ends. → (acc, state)."""
-    slots = _staging_slots(cfg)
-    fill = 0
+    Every batch feeds every lane: a lane flushes when the batch would not fit in its staging
+    buffer (flushes follow staged windows, since a batch stages width-proportional rows).
+    ``after_flush(state)`` runs after each flush inside the stream, before the next batch is
+    extracted. Lanes are updated in place. ``reads_ingested`` and ``batches`` count once a
+    batch, ``kmers_extracted`` and ``windows_staged`` once a lane."""
+    for lane in lanes:
+        lane.fill = 0
     for w, packed in items:
-        per_read = max(w - cfg.k + 1, 0)
-        win = cfg.batch_reads * per_read
         m.count("reads_ingested", packed.n_reads)
-        if fill + win > slots:
-            with m.timer(timer):
-                acc, state = flush_fn(acc, state)
-            fill = 0
-            if after_flush is not None:
-                after_flush(state)
-        with m.timer(timer):
-            acc = steps[w](acc, packed)
-        fill += win
-        m.count("kmers_extracted", packed.n_reads * per_read)
-        m.count("windows_staged", win)
         m.count("batches", 1)
-    if fill and final_flush:
-        with m.timer(timer):
-            acc, state = flush_fn(acc, state)
-    return acc, state
+        for lane in lanes:
+            cfg = lane.cfg
+            per_read = max(w - cfg.k + 1, 0)
+            win = cfg.batch_reads * per_read
+            if lane.fill + win > _staging_slots(cfg):
+                with m.timer(timer):
+                    lane.acc, lane.state = lane.flush_fn(lane.acc, lane.state)
+                lane.fill = 0
+                if after_flush is not None:
+                    after_flush(lane.state)
+            with m.timer(timer):
+                lane.acc = lane.steps[w](lane.acc, packed)
+            lane.fill += win
+            m.count("kmers_extracted", packed.n_reads * per_read)
+            m.count("windows_staged", win)
+    for lane in lanes:
+        if lane.fill and lane.final_flush:
+            with m.timer(timer):
+                lane.acc, lane.state = lane.flush_fn(lane.acc, lane.state)
 
 
-def _placed_items(batches: Iterable, cfg: EngineConfig, device: torch.device, bucket_steps,
-                  append_packed, stats: Optional[dict] = None):
-    """Place a batch stream on ``device`` (prefetched) as ``_fold_stream``'s items, with its
-    steps by width: a bucketed stream (``bucket_steps`` given) as it is, an unbucketed one as
-    the one-width case. → (feed, items, steps); closing ``feed`` stops the prefetch threads."""
+def _placed_items(batches: Iterable, cfg: EngineConfig, device: torch.device,
+                  bucketed: bool, stats: Optional[dict] = None):
+    """Place a batch stream on ``device`` (prefetched) as ``_fold_stream``'s items: a
+    bucketed stream as it is, an unbucketed one as the one-width case. → (feed, items);
+    closing ``feed`` stops the prefetch threads."""
     feed = prefetch_placed(batches, device, ship_lengths=True, stats=stats)
-    if bucket_steps is not None:
-        return feed, feed, bucket_steps
-    return feed, ((cfg.max_read_len, p) for p in feed), {cfg.max_read_len: append_packed}
+    if bucketed:
+        return feed, feed
+    return feed, ((cfg.max_read_len, p) for p in feed)
+
+
+def _fold_placed(batches: Iterable, cfg: EngineConfig, device: torch.device,
+                 lanes: Sequence[FoldLane], m: Metrics, bucketed: bool = False) -> None:
+    """Decode and place ``batches`` once and fold every batch into every lane; the feed's
+    starvation goes to ``m`` (``feed_wait``)."""
+    feed_stats: dict = {}
+    _, items = _placed_items(batches, cfg, device, bucketed, feed_stats)
+    _fold_stream(items, lanes, m)
+    _report_feed_stats(m, feed_stats)
+
+
+def _steps(cfg: EngineConfig, append_packed, bucket_steps) -> dict:
+    """A lane's ingest steps by width: ``bucket_steps`` for a bucketed stream, else
+    ``append_packed`` at ``cfg.max_read_len``."""
+    return bucket_steps if bucket_steps is not None else {cfg.max_read_len: append_packed}
+
+
+def _check_table(table: KmerTable, cfg: EngineConfig,
+                 what: str = "unique k-mers") -> int:
+    """Host check of a built table: → its ``n``; TableOverflowError above capacity."""
+    n = int(table.n)
+    if n > cfg.table_capacity:
+        raise TableOverflowError(_overflow_msg(n, cfg.table_capacity, what))
+    return n
 
 
 class SampleTableBuilder:
@@ -260,25 +304,24 @@ class SampleTableBuilder:
         self.device = resolve_device(device)
         self.append_packed = append_packed or make_ingest_step(cfg)
 
+    def lane(self, bucket_steps=None) -> FoldLane:
+        """A fold lane that counts into an empty table."""
+        cfg = self.cfg
+        return FoldLane(cfg, _steps(cfg, self.append_packed, bucket_steps),
+                        empty_accumulator(_staging_slots(cfg), cfg.words, self.device),
+                        empty_table(cfg.table_capacity, cfg.words, self.device), flush)
+
     def build(self, packed_batches: Iterable, metrics: Optional[Metrics] = None,
               bucket_steps=None) -> KmerTable:
         """Fold a PackedReads stream into a table; with ``bucket_steps`` the stream holds
         (bucket_width, PackedReads) pairs (pack_records_bucketed), each extracted by
         ``bucket_steps[width]``. Bit-identical either way."""
-        cfg = self.cfg
         m = metrics or Metrics()
-        feed_stats: dict = {}
-        _, items, steps = _placed_items(packed_batches, cfg, self.device, bucket_steps,
-                                        self.append_packed, feed_stats)
-        acc = empty_accumulator(_staging_slots(cfg), cfg.words, self.device)
-        table = empty_table(cfg.table_capacity, cfg.words, self.device)
-        _, table = _fold_stream(items, cfg, steps, acc, table, flush, m)
-        _report_feed_stats(m, feed_stats)
-        n = int(table.n)
-        if n > cfg.table_capacity:
-            raise TableOverflowError(_overflow_msg(n, cfg.table_capacity))
-        m.count("unique_kmers", n)
-        return table
+        lane = self.lane(bucket_steps)
+        _fold_placed(packed_batches, self.cfg, self.device, [lane], m,
+                     bucketed=bucket_steps is not None)
+        m.count("unique_kmers", _check_table(lane.state, self.cfg))
+        return lane.state
 
 
 class ScoringTableBuilder:
@@ -292,19 +335,14 @@ class ScoringTableBuilder:
         self.device = resolve_device(device)
         self.append_packed = append_packed or make_ingest_step(cfg)
 
-    def build_call(self, mom: KmerTable, dad: KmerTable, packed_batches: Iterable,
-                   metrics: Optional[Metrics] = None, bucket_steps=None):
-        """Stream the child and finish with the fused one-sort flush+call (ops/fused.py).
-
-        Returns (Candidates, n_unique, n_child_unique). The scoring table is seeded at a
-        tight power-of-two capacity (a sorted table stays valid under truncation to >= n:
-        padding sorts last), because every seed row rides every flush sort. Intermediate
-        windows use the compacting flush (bounded staging); only the final window skips
-        compaction, so arbitrarily long streams still work. With ``bucket_steps`` the
-        stream holds (bucket_width, PackedReads) pairs, extracted by ``bucket_steps[width]``.
-        """
+    def call_lane(self, mom: KmerTable, dad: KmerTable, bucket_steps=None) -> FoldLane:
+        """The fold lane of the fused call: the scoring table is seeded at a tight
+        power-of-two capacity (a sorted table stays valid under truncation to >= n: padding
+        sorts last), because every seed row rides every flush sort; the first flush grows it
+        to the table capacity. Intermediate windows use the compacting flush (bounded
+        staging); the final window stays staged for ``finish_call``. State: (table,
+        flushed)."""
         cfg = self.cfg
-        m = metrics or Metrics()
         seed = seed_score_table(mom, dad, mom.capacity + dad.capacity)
         n_seed = int(seed.n)  # one host sync, before streaming starts
         cap2 = max(1 << (max(n_seed, 1) - 1).bit_length(), 1024)
@@ -314,26 +352,25 @@ class ScoringTableBuilder:
 
         def flush_fn(acc, state):
             table, flushed = state
-            # the first flush grows the tight seed to the full table capacity
             acc, table = flush_score(acc, table,
                                      out_capacity=0 if flushed else cfg.table_capacity)
             return acc, (table, True)
 
-        feed_stats: dict = {}
-        _, items, steps = _placed_items(packed_batches, cfg, self.device, bucket_steps,
-                                        self.append_packed, feed_stats)
-        acc = empty_accumulator(_staging_slots(cfg), cfg.words, self.device)
-        acc, (table, flushed) = _fold_stream(items, cfg, steps, acc, (seed, False), flush_fn,
-                                             m, final_flush=False)
-        _report_feed_stats(m, feed_stats)
-        if flushed and int(table.n) > cfg.table_capacity:
-            raise TableOverflowError(
-                _overflow_msg(int(table.n), cfg.table_capacity,
-                              "unique k-mers (child ∪ parents)")
-            )
+        return FoldLane(cfg, _steps(cfg, self.append_packed, bucket_steps),
+                        empty_accumulator(_staging_slots(cfg), cfg.words, self.device),
+                        (seed, False), flush_fn, final_flush=False)
+
+    def finish_call(self, lane: FoldLane, metrics: Optional[Metrics] = None):
+        """The fused one-sort flush+call (ops/fused.py) on a folded ``call_lane``. →
+        (Candidates, n_unique, n_child_unique)."""
+        cfg = self.cfg
+        m = metrics or Metrics()
+        table, flushed = lane.state
+        if flushed:
+            _check_table(table, cfg, "unique k-mers (child ∪ parents)")
         with m.timer("trio_call"):
             keys, cc, mc, dc, n_unique, n_child_unique = fused_call_full(
-                acc, table, cfg.tau_parent, cfg.min_child_count
+                lane.acc, table, cfg.tau_parent, cfg.min_child_count
             )
         cands = Candidates(
             keys=torch.from_numpy(keys.astype(np.int64)),
@@ -344,23 +381,46 @@ class ScoringTableBuilder:
         )
         return cands, n_unique, n_child_unique
 
-    def build(self, mom: KmerTable, dad: KmerTable, packed_batches: Iterable,
-              metrics: Optional[Metrics] = None) -> ScoreTable:
-        """The compacting child build (every k; ``run_trio`` takes it where the fused call
-        does not apply) over an unbucketed PackedReads stream."""
-        cfg = self.cfg
+    def build_call(self, mom: KmerTable, dad: KmerTable, packed_batches: Iterable,
+                   metrics: Optional[Metrics] = None, bucket_steps=None):
+        """Stream the child and finish with the fused one-sort flush+call (ops/fused.py).
+
+        Returns (Candidates, n_unique, n_child_unique). Only the final window skips
+        compaction, so arbitrarily long streams still work. With ``bucket_steps`` the
+        stream holds (bucket_width, PackedReads) pairs, extracted by
+        ``bucket_steps[width]``."""
         m = metrics or Metrics()
-        _, items, steps = _placed_items(packed_batches, cfg, self.device, None,
-                                        self.append_packed)
-        acc = empty_accumulator(_staging_slots(cfg), cfg.words, self.device)
-        table = seed_score_table(mom, dad, cfg.table_capacity)
-        _, table = _fold_stream(items, cfg, steps, acc, table, flush_score, m)
-        n = int(table.n)
-        if n > cfg.table_capacity:
-            raise TableOverflowError(
-                _overflow_msg(n, cfg.table_capacity, "unique k-mers (child ∪ parents)")
-            )
-        return table
+        lane = self.call_lane(mom, dad, bucket_steps)
+        _fold_placed(packed_batches, self.cfg, self.device, [lane], m,
+                     bucketed=bucket_steps is not None)
+        return self.finish_call(lane, m)
+
+    def lane(self, mom: KmerTable, dad: KmerTable) -> FoldLane:
+        """The fold lane of the compacting child build: every window folds into a scoring
+        table seeded from both parents at the table capacity."""
+        cfg = self.cfg
+        return FoldLane(cfg, _steps(cfg, self.append_packed, None),
+                        empty_accumulator(_staging_slots(cfg), cfg.words, self.device),
+                        seed_score_table(mom, dad, cfg.table_capacity), flush_score)
+
+    def child_lane(self, mom: KmerTable, dad: KmerTable, bucket_steps=None) -> FoldLane:
+        """The child's fold lane: the fused call's (``call_lane``) where the k geometry
+        allows it (``fused_supported``), else the compacting build's (``lane``, unbucketed:
+        ``bucket_steps`` must be None)."""
+        if fused_supported(self.cfg.k):
+            return self.call_lane(mom, dad, bucket_steps)
+        assert bucket_steps is None, "the compacting child build streams unbucketed"
+        return self.lane(mom, dad)
+
+    def finish(self, lane: FoldLane, metrics: Optional[Metrics] = None
+               ) -> Tuple[Candidates, int]:
+        """The trio call on a folded ``child_lane``: the fused flush+call, else the checked
+        compacted table and ``call_from_score``. → (candidates, child uniques)."""
+        if fused_supported(self.cfg.k):
+            cands, _n_union, child_uniques = self.finish_call(lane, metrics)
+            return cands, child_uniques
+        _check_table(lane.state, self.cfg, "unique k-mers (child ∪ parents)")
+        return _call_compacted(lane.state, self.cfg, metrics or Metrics())
 
 
 def packed_batches(source, cfg: EngineConfig,
@@ -529,16 +589,15 @@ def build_sample_table_resumable(
 
     feed_stats: dict = {}
     feed = prefetch_placed(iter(stream), dev, ship_lengths=True, stats=feed_stats)
+    lane = FoldLane(cfg, {cfg.max_read_len: make_ingest_step(cfg)}, acc, table, flush)
     try:
-        _, table = _fold_stream(batches(feed), cfg, {cfg.max_read_len: make_ingest_step(cfg)},
-                                acc, table, flush, m, after_flush=save_when_due)
+        _fold_stream(batches(feed), [lane], m, after_flush=save_when_due)
     finally:
         feed.close()  # stop the prefetch threads before closing their input
         close_unless_leaked(stream, feed_stats)
     _report_feed_stats(m, feed_stats)
-    n = int(table.n)
-    if n > cfg.table_capacity:
-        raise TableOverflowError(_overflow_msg(n, cfg.table_capacity))
+    table = lane.state
+    n = _check_table(table, cfg)
     save_resume(resume_path, table, cfg, cursor=-1, done=True)
     m.count("unique_kmers", n)
     return table
@@ -576,9 +635,11 @@ def format_report_np(
 
 
 def _parent_tables(mom_path: str, dad_path: str, cfg: EngineConfig, m: Metrics,
-                   region: Optional[str], dev: torch.device) -> Dict[str, KmerTable]:
+                   region: Optional[str], dev: torch.device,
+                   append_packed=None) -> Dict[str, KmerTable]:
     """The parents' tables: a `count` checkpoint (``.npz``) loads and skips the parent's
-    pass; reads build (bucketed where the config says so)."""
+    pass; reads build (bucketed where the config says so, unless ``append_packed`` gives
+    the ingest step)."""
     tables = {}
     for name, path in (("mom", mom_path), ("dad", dad_path)):
         loaded = maybe_load_flat_table(path, cfg, dev)
@@ -587,7 +648,8 @@ def _parent_tables(mom_path: str, dad_path: str, cfg: EngineConfig, m: Metrics,
             m.event("table_loaded", sample=name, path=path)
         else:
             with m.timer(f"build_{name}"):
-                tables[name] = build_sample_table(path, cfg, m, region=region, device=dev)
+                tables[name] = build_sample_table(path, cfg, m, region=region, device=dev,
+                                                  append_packed=append_packed)
         m.event("table_built", sample=name, unique=int(tables[name].n))
     return tables
 
@@ -613,41 +675,62 @@ def run_trio(
     m = metrics or Metrics()
     tables = _parent_tables(mom_path, dad_path, cfg, m, region, dev)
 
-    # child scoring: parent-seeded path (ops/score.py); when the k geometry allows it the
-    # final window runs the one-sort fused flush+call (ops/fused.py) — no compaction
-    scorer = ScoringTableBuilder(cfg, dev)
-    if fused_supported(cfg.k):
-        bucket_steps = make_bucketed_extract_steps(cfg) if cfg.read_len_buckets else None
-        child_batches = (_bucketed_stream(child_path, cfg, region) if bucket_steps
-                         else packed_batches(child_path, cfg, region))
-        with m.timer("build_child"):
-            cands, _n_union, child_uniques = scorer.build_call(
-                tables["mom"], tables["dad"], child_batches, m, bucket_steps=bucket_steps)
-            n = int(cands.n)
-    else:
-        with m.timer("build_child"):
-            score_tab = scorer.build(tables["mom"], tables["dad"],
-                                     packed_batches(child_path, cfg, region), m)
-        child_uniques = int((score_tab.counts >= 1).sum())
-        with m.timer("trio_call"):
-            cands = call_from_score(score_tab, cfg.tau_parent, cfg.min_child_count)
-            n = int(cands.n)
+    cands, child_uniques = score_child(cfg, dev, tables["mom"], tables["dad"], child_path, m,
+                                       region)
     tables_n = {"mom": int(tables["mom"].n), "dad": int(tables["dad"].n),
                 "child": child_uniques}
-    m.event("table_built", sample="child", unique=child_uniques)
+    return _trio_result(_candidate_parts(cands), cfg.k, m, tables_n)
 
-    keys, cc, mc, dc = _candidate_parts(cands, n)
-    report = format_report_np(keys, cc, mc, dc, cfg.k)
+
+def score_child(cfg: EngineConfig, dev: torch.device, mom: KmerTable, dad: KmerTable,
+                child_path: str, m: Metrics, region: Optional[str] = None,
+                append_packed=None, bucket_steps=None) -> Tuple[Candidates, int]:
+    """The child against its parents' tables: the parent-seeded scored build (ops/score.py),
+    whose final window runs the one-sort fused flush+call (ops/fused.py) where the k
+    geometry allows it, else the compacting build (unbucketed) and ``call_from_score``.
+    ``append_packed`` and ``bucket_steps`` override the config's ingest steps (a multipass
+    pass's filtered steps). → (candidates, child uniques)."""
+    scorer = ScoringTableBuilder(cfg, dev, append_packed)
+    if not fused_supported(cfg.k):
+        bucket_steps = None
+    elif bucket_steps is None and cfg.read_len_buckets:
+        bucket_steps = make_bucketed_extract_steps(cfg)
+    child_batches = (_bucketed_stream(child_path, cfg, region) if bucket_steps
+                     else packed_batches(child_path, cfg, region))
+    with m.timer("build_child"):
+        lane = scorer.child_lane(mom, dad, bucket_steps)
+        _fold_placed(child_batches, cfg, dev, [lane], m, bucketed=bucket_steps is not None)
+        cands, child_uniques = scorer.finish(lane, m)
+    m.event("table_built", sample="child", unique=child_uniques)
+    return cands, child_uniques
+
+
+def _call_compacted(score_tab: ScoreTable, cfg: EngineConfig,
+                    m: Metrics) -> Tuple[Candidates, int]:
+    """The trio call on a compacted scoring table. → (candidates, child uniques)."""
+    child_uniques = int((score_tab.counts >= 1).sum())
+    with m.timer("trio_call"):
+        cands = call_from_score(score_tab, cfg.tau_parent, cfg.min_child_count)
+    return cands, child_uniques
+
+
+def _trio_result(parts, k: int, m: Metrics, tables_n: Dict[str, int]) -> TrioResult:
+    """The TrioResult of host uint32 (keys, child, mom, dad) candidate columns in report
+    order."""
+    keys, cc, mc, dc = parts
+    n = keys.shape[0]
     cand_tuples = [
         (words_to_kmer_value(keys[i]), int(cc[i]), int(mc[i]), int(dc[i]))
         for i in range(n)
     ]
     m.count("candidates", n)
-    return TrioResult(candidates=cand_tuples, report=report, metrics=m, tables_n=tables_n)
+    return TrioResult(candidates=cand_tuples, report=format_report_np(keys, cc, mc, dc, k),
+                      metrics=m, tables_n=tables_n)
 
 
-def _candidate_parts(cands: Candidates, n: int):
-    """Host uint32 (keys, child, mom, dad) of the first ``n`` candidates."""
+def _candidate_parts(cands: Candidates):
+    """Host uint32 (keys, child, mom, dad) of the candidates."""
+    n = int(cands.n)
     return tuple(t[:n].cpu().numpy().astype(np.uint32)
                  for t in (cands.keys, cands.child_counts, cands.mom_counts,
                            cands.dad_counts))
@@ -664,14 +747,7 @@ def _merge_pass_results(parts: List[tuple], cfg: EngineConfig, m: Metrics,
         keys = np.zeros((0, cfg.words), np.uint32)
         cc = mc = dc = np.zeros((0,), np.uint32)
     order = np.lexsort(tuple(keys[:, w] for w in reversed(range(cfg.words))))
-    keys, cc, mc, dc = keys[order], cc[order], mc[order], dc[order]
-    report = format_report_np(keys, cc, mc, dc, cfg.k)
-    cand_tuples = [
-        (words_to_kmer_value(keys[i]), int(cc[i]), int(mc[i]), int(dc[i]))
-        for i in range(keys.shape[0])
-    ]
-    m.count("candidates", keys.shape[0])
-    return TrioResult(candidates=cand_tuples, report=report, metrics=m, tables_n=tables_n)
+    return _trio_result((keys[order], cc[order], mc[order], dc[order]), cfg.k, m, tables_n)
 
 
 def _filter_table_by_pass(table: KmerTable, n_passes: int, pass_id: int) -> KmerTable:
@@ -738,24 +814,11 @@ def run_trio_multipass(
                 with m.timer(f"build_{name}"):
                     ptables[name] = build_sample_table(path, cfg, m, region, dev, pass_step)
             tables_n[name] += int(ptables[name].n)
-        scorer = ScoringTableBuilder(cfg, dev, pass_step)
-        with m.timer("build_child"):
-            if fused_supported(cfg.k):
-                child_batches = (_bucketed_stream(child_path, cfg, region)
-                                 if pass_bucket_steps is not None
-                                 else packed_batches(child_path, cfg, region))
-                cands, _nu, n_child = scorer.build_call(
-                    ptables["mom"], ptables["dad"], child_batches, m,
-                    bucket_steps=pass_bucket_steps)
-            else:
-                # the compacting fallback (even k) has no bucketed variant
-                stab = scorer.build(ptables["mom"], ptables["dad"],
-                                    packed_batches(child_path, cfg, region), m)
-                n_child = int((stab.counts >= 1).sum())
-                cands = call_from_score(stab, cfg.tau_parent, cfg.min_child_count)
-            n = int(cands.n)
+        cands, n_child = score_child(cfg, dev, ptables["mom"], ptables["dad"], child_path, m,
+                                     region, pass_step, pass_bucket_steps)
         tables_n["child"] += n_child
-        parts.append(_candidate_parts(cands, n))
+        parts.append(_candidate_parts(cands))
+        n = parts[-1][0].shape[0]
         m.event("pass_done", pass_id=p, candidates=n)
     return _merge_pass_results(parts, cfg, m, tables_n)
 
@@ -779,18 +842,17 @@ def _spill_stream(path: str, cfg: EngineConfig, n_passes: int, sink, cap: int, m
     else:
         stream = packed_batches(path, cfg, region)
     feed_stats: dict = {}
-    feed, items, steps = _placed_items(stream, cfg, device, bucket_steps, append_packed,
-                                       feed_stats)
-    acc = empty_accumulator(_staging_slots(cfg), cfg.words, device)
-    overflow = torch.zeros((), dtype=torch.int64, device=device)
+    feed, items = _placed_items(stream, cfg, device, bucket_steps is not None, feed_stats)
+    lane = FoldLane(cfg, _steps(cfg, append_packed, bucket_steps),
+                    empty_accumulator(_staging_slots(cfg), cfg.words, device),
+                    torch.zeros((), dtype=torch.int64, device=device), partition)
     try:
-        _, overflow = _fold_stream(items, cfg, steps, acc, overflow, partition, m,
-                                   timer="extract_spill")
+        _fold_stream(items, [lane], m, timer="extract_spill")
     finally:
         feed.close()  # stop the prefetch threads before closing their input
         close_unless_leaked(stream, feed_stats)
     _report_feed_stats(m, feed_stats)
-    return int(overflow)
+    return int(lane.state)
 
 
 def run_trio_spill(
@@ -912,10 +974,7 @@ def run_trio_spill(
                 table = _fold_chunk(rows, table, take)
         else:
             table = count_pass_from_store(sp, p, table, chunk_rows)
-        n = int(table.n)
-        if n > C:
-            raise TableOverflowError(_overflow_msg(n, C))
-        return table, n
+        return table, _check_table(table, cfg)
 
     parts = []
     tables_n = {"mom": 0, "dad": 0, "child": 0}
@@ -932,12 +991,267 @@ def run_trio_spill(
                     stab = _fold_chunk_score(rows, stab, take)
             else:
                 stab = score_pass_from_store(sp, p, stab, chunk_rows)
-            n_union = int(stab.n)
-            if n_union > C:
-                raise TableOverflowError(_overflow_msg(n_union, C))
+            _check_table(stab, cfg)
             tables_n["child"] += int((stab.counts >= 1).sum())
             cands = call_from_score(stab, cfg.tau_parent, cfg.min_child_count)
-            n = int(cands.n)
-            parts.append(_candidate_parts(cands, n))
+            parts.append(_candidate_parts(cands))
+            n = parts[-1][0].shape[0]
         m.event("pass_done", pass_id=p, candidates=n)
     return _merge_pass_results(parts, cfg, m, tables_n)
+
+
+# ---------------------------------------------------------------------------------------
+# evidence: the child reads that hold a candidate k-mer
+# ---------------------------------------------------------------------------------------
+
+def parse_candidates_tsv(path: str) -> List[Tuple[str, int]]:
+    """(kmer, child_count) rows of a `call` report TSV (``#``-prefixed header skipped;
+    count 0 when the column is absent). The one parser of the candidate-TSV text format:
+    evidence and sites both build on it. Non-numeric count columns parse as 0 with one
+    stderr warning, so all-zero child counts downstream are never silent."""
+    out: List[Tuple[str, int]] = []
+    bad_counts = 0
+    first_bad = None
+    with open(path, "rt") as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split("\t")
+            try:  # tolerate non-numeric second columns (hand-made TSVs)
+                count = int(parts[1]) if len(parts) > 1 else 0
+            except ValueError:
+                count = 0
+                bad_counts += 1
+                if first_bad is None:
+                    first_bad = (lineno, parts[1][:40])
+            out.append((parts[0].upper(), count))
+    if bad_counts:
+        print(f"denovo-kmer: {path}: {bad_counts} row(s) with a non-numeric "
+              f"count column (first: line {first_bad[0]}, {first_bad[1]!r}) "
+              f"— treated as count 0; check the file's delimiter/columns",
+              file=sys.stderr)
+    return out
+
+
+def candidate_words_from_tsv(path: str, cfg: EngineConfig) -> np.ndarray:
+    """Candidate k-mer strings (parse_candidates_tsv) → (N, W) uint32 canonical word rows."""
+    from denovo_kmer_tpu_torch.oracle.scalar import (
+        canonical_value,
+        encode_kmer,
+        kmer_value_to_words,
+    )
+
+    rows = []
+    for s, _count in parse_candidates_tsv(path):
+        if len(s) != cfg.k:
+            raise ValueError(
+                f"{path}: candidate {s[:40]!r} has length {len(s)}, expected k={cfg.k}")
+        v = encode_kmer(s)
+        if cfg.canonical:
+            v = canonical_value(v, cfg.k)
+        rows.append(kmer_value_to_words(v, cfg.k))
+    return np.asarray(rows, np.uint32).reshape(len(rows), cfg.words)
+
+
+def candidate_table(words: np.ndarray, device="cpu") -> KmerTable:
+    """Small sorted membership table from (N, W) candidate rows, built on the host (N is
+    the candidate count, thousands at most; ``probe_table`` binary-searches it)."""
+    n, W = words.shape
+    if n:
+        order = np.lexsort(tuple(words[:, w] for w in range(W - 1, -1, -1)))
+        rows = words[order]
+        keep = np.ones(n, bool)
+        keep[1:] = (rows[1:] != rows[:-1]).any(axis=1)
+        rows = rows[keep]
+        n = len(rows)
+    else:
+        rows = words
+    cap = max(1 << max(int(n - 1).bit_length(), 1), 2)
+    keys = np.full((cap, W), 0xFFFFFFFF, np.uint32)
+    keys[:n] = rows
+    return table_from_numpy(keys, (np.arange(cap) < n).astype(np.uint32), n, device)
+
+
+def candidate_read_batches(child_path: str, table: KmerTable, cfg: EngineConfig,
+                           region: Optional[str] = None) -> Iterator[Tuple[list, np.ndarray]]:
+    """The device step of evidence and sites: the child's records that pass the record
+    filter, in batches of ``cfg.batch_reads``, each with the host bool mask of its reads that
+    hold a valid window whose (canonical) k-mer is in ``table``. Row r of a packed batch is
+    read r of the batch, so records and windows stay aligned (the filter runs here, not in
+    ``pack_records``). On the table's device one ``extract_append`` into a scratch buffer of
+    ``batch_reads × P`` rows at fill 0 writes window (b, p) at row b·P + p: the (B, P, W)
+    keys and (B, P) validity the probe (``ops/table.probe_table``) takes."""
+    from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+    from denovo_kmer_tpu_torch.ops.pack import pack_seqs
+    from denovo_kmer_tpu_torch.ops.table import probe_table
+
+    records = _record_stream(child_path, cfg, region)  # unported inputs raise here
+    dev = table.keys.device
+    B, P, W = cfg.batch_reads, cfg.windows_per_read, cfg.words
+    scratch = empty_accumulator(B * P, W, dev)
+
+    def hits(batch: list) -> np.ndarray:
+        packed = pack_seqs([r.seq for r in batch], cfg, [r.qual for r in batch], batch_size=B)
+        acc = _extract_append(scratch, as_int32_tensor(packed.words).to(dev),
+                              as_int32_tensor(packed.vwords).to(dev), None, cfg.k,
+                              cfg.max_read_len, cfg.canonical)
+        hit = (probe_table(table, acc.kmers.view(B, P, W)) > 0) & acc.valid.view(B, P)
+        return hit.any(dim=-1).cpu().numpy()[: len(batch)]
+
+    def batches():
+        batch: list = []
+        for rec in records:
+            if rec.flag & cfg.filter_flag_mask:
+                continue
+            batch.append(rec)
+            if len(batch) == B:
+                yield batch, hits(batch)
+                batch = []
+        if batch:
+            yield batch, hits(batch)
+
+    return batches()
+
+
+def _engine_view_of_seq(r, cfg: EngineConfig) -> str:
+    """The sequence as the device saw it: truncated to max_read_len, with bases below
+    min_base_quality masked to N (ops/pack semantics), so host attribution can never credit
+    a k-mer the engine itself dropped."""
+    s = r.seq[: cfg.max_read_len]
+    if cfg.min_base_quality > 0 and r.qual is not None:
+        s = "".join("N" if q < cfg.min_base_quality else b for b, q in zip(s, r.qual))
+    return s
+
+
+def record_as_bam(r, ordinal: int):
+    """Sequence-level BamRecord for sources without alignment fields (nameless or refless
+    evidence rows)."""
+    from denovo_kmer_tpu_torch.io.bam import BamRecord
+
+    if isinstance(r, BamRecord):
+        return r
+    return BamRecord(name=getattr(r, "name", None) or f"r{ordinal}",
+                     flag=getattr(r, "flag", 4) | 4, seq=r.seq, qual=r.qual)
+
+
+def source_header(path: str):
+    """(references, SAM header text) of a reads source: ([], a default header) when the
+    format has none (FASTQ/FASTA). Reads the header only."""
+    default = "@HD\tVN:1.6\tSO:unsorted\n"
+    low = path.lower()
+    if "://" in path:
+        raise NotImplementedError(f"remote input ({path}): {_NOT_YET}")
+    if low.endswith((".cram", ".sam", ".sam.gz")):
+        raise NotImplementedError(f"SAM/CRAM input ({path}): {_NOT_YET}")
+    if low.endswith(".bam"):
+        from denovo_kmer_tpu_torch.io.bam import BamReader
+
+        with open(path, "rb") as f:
+            r = BamReader(f)
+            return r.references, (r.header_text or default)
+    return [], default
+
+
+def source_references(path: str) -> list:
+    """(name, length) reference dictionary of a reads source, [] when the format has none
+    (FASTQ/FASTA)."""
+    return source_header(path)[0]
+
+
+@dataclasses.dataclass
+class EvidenceResult:
+    n_reads_scanned: int
+    n_reads_matched: int
+    out_path: str
+
+
+def run_evidence(
+    child_path: str,
+    candidates_tsv: str,
+    cfg: EngineConfig,
+    out_path: str,
+    region: Optional[str] = None,
+    per_candidate_out: Optional[str] = None,
+    device=None,
+) -> EvidenceResult:
+    """Write the child reads that contain any candidate k-mer (forward or reverse
+    complement, the call's canonical semantics) to ``out_path`` (.bam, .sam text, or
+    .fastq/.fq for sequence-only output): the supporting-evidence subset every de novo
+    candidate review needs. On the device it is the extraction kernel and one
+    binary-search probe a window (``candidate_read_batches``); the records ride along on
+    the host. ``per_candidate_out`` also writes, for each candidate, the names of the
+    matched reads that hold it. ``device=None`` runs on the card."""
+    from denovo_kmer_tpu_torch.io.bam import BamRecord, BamWriter
+
+    dev = resolve_device(device)
+    table = candidate_table(candidate_words_from_tsv(candidates_tsv, cfg), dev)
+    low_out = out_path.lower()
+    fastq = low_out.endswith((".fastq", ".fq"))
+    sam_text = low_out.endswith(".sam")
+    scanned = matched = 0
+    matched_reads: list = []  # (name, seq), only kept for per_candidate_out
+
+    # BAM/SAM output needs the source's reference dictionary: records keep their refid,
+    # and a BAM whose refid >= n_ref is structurally invalid
+    references = [] if fastq else source_references(child_path)
+    n_ref = len(references)
+    ref_names = [n for n, _ in references]
+    batches = candidate_read_batches(child_path, table, cfg, region)
+
+    if sam_text:
+        from denovo_kmer_tpu_torch.io.sam import format_sam_record, sam_header_lines
+
+        out_f = open(out_path, "w")
+        out_f.write("\n".join(sam_header_lines(references)) + "\n")
+        writer = None
+    else:
+        out_f = open(out_path, "wb")
+        writer = None if fastq else BamWriter(out_f, references=references)
+    try:
+        for batch, mask in batches:
+            for i, (r, hit) in enumerate(zip(batch, mask)):
+                ordinal = scanned + i
+                if not hit:
+                    continue
+                matched += 1
+                name = getattr(r, "name", None) or f"r{ordinal}"
+                if per_candidate_out is not None:
+                    matched_reads.append((name, _engine_view_of_seq(r, cfg)))
+                if fastq:
+                    q = r.qual if r.qual is not None else (0,) * len(r.seq)
+                    qs = "".join(chr(min(x, 93) + 33) for x in q)
+                    out_f.write(f"@{name}\n{r.seq}\n+\n{qs}\n".encode())
+                elif sam_text:
+                    out_f.write(format_sam_record(record_as_bam(r, ordinal), ref_names) + "\n")
+                elif isinstance(r, BamRecord) and r.refid < n_ref:
+                    writer.write(r)
+                else:  # nameless/refless sources: sequence-level evidence rows
+                    writer.write(record_as_bam(r, ordinal))
+            scanned += len(batch)
+    finally:
+        if writer is not None:
+            writer.close()
+        out_f.close()
+    if per_candidate_out is not None:
+        _write_per_candidate(candidates_tsv, matched_reads, per_candidate_out)
+    return EvidenceResult(n_reads_scanned=scanned, n_reads_matched=matched,
+                          out_path=out_path)
+
+
+def _write_per_candidate(candidates_tsv: str, matched_reads: list, out_path: str) -> None:
+    """candidate → supporting read names: the matched subset is small, so a host substring
+    scan (forward and reverse complement, the call's canonical semantics) is exact."""
+    rc = str.maketrans("ACGT", "TGCA")
+    cands = []
+    with open(candidates_tsv) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#"):
+                cands.append(line.split("\t")[0].upper())
+    with open(out_path, "w") as f:
+        f.write("#kmer\tn_reads\treads\n")
+        for c in cands:
+            pats = (c, c.translate(rc)[::-1])
+            names = [n for n, s in matched_reads if pats[0] in s or pats[1] in s]
+            f.write(f"{c}\t{len(names)}\t{','.join(names)}\n")

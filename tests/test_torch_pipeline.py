@@ -177,7 +177,9 @@ def test_cli_call_cpu_matches_jax_cli(trio_dir, tmp_path):
     # the length buckets and the feeder threads are live, but not beside an unported flag
     ["--regions-bed", "r.bed"], ["--read-len-buckets", "32,64", "--mesh", "2x2"],
     ["--ingest-threads", "4", "--region", "chr20"],
-    ["--profile-dir", "prof"], ["--evidence-out", "ev.bam"], ["--sites-out", "s.tsv"],
+    # evidence and sites are live, but not beside an unported flag
+    ["--profile-dir", "prof"], ["--evidence-out", "ev.bam", "--region", "chr20"],
+    ["--sites-out", "s.tsv", "--mesh", "2x2"],
 ])
 def test_cli_rejects_unported_flags(trio_dir, flag, capsys):
     _, _, paths = trio_dir

@@ -47,7 +47,8 @@ def test_import_loads_no_jax():
         "import denovo_kmer_tpu_torch.ops.extract, denovo_kmer_tpu_torch.io.synth\n"
         "import denovo_kmer_tpu_torch.ops.spill, denovo_kmer_tpu_torch.ops.partition\n"
         "import denovo_kmer_tpu_torch.ops.block_sort, denovo_kmer_tpu_torch.utils.checkpoint\n"
-        "import denovo_kmer_tpu_torch.io.native\n"
+        "import denovo_kmer_tpu_torch.io.native, denovo_kmer_tpu_torch.io.sam\n"
+        "import denovo_kmer_tpu_torch.cohort, denovo_kmer_tpu_torch.sites\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
