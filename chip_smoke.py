@@ -4,11 +4,13 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout, on a machine with an NVIDIA card (sm_90a, nvcc under
-/usr/local/cuda or $CUDA_HOME) and g++ with zlib. It exits non-zero, printing no result,
+/usr/local/cuda or $CUDA_HOME) and g++ with zlib. It starts six worker processes (phase
+8's CRAM and sorted-BAM writers) and an HTTP server thread on 127.0.0.1, and stops them all. It exits non-zero, printing no result,
 without a card or without the package beside it. Phases, each printed as one JSON line:
 
 1. build    — compile every CUDA kernel from denovo_kmer_tpu_torch/csrc, one nvcc a source,
-              all started together; then the C++ BAM feeder (g++, zlib), which must build.
+              all started together; then the port's native library (the C++ BAM feeder
+              and the CRAM codecs; g++, zlib), which must build.
 2. kernels  — each kernel against its plain PyTorch version on the card (tolerance 0: every
               quantity is an integer), timed by CUDA events (median after warm-up) beside
               its bound and, where one PyTorch call computes the same function, that call:
@@ -47,7 +49,11 @@ without a card or without the package beside it. Phases, each printed as one JSO
               mixed-length trio, and run_trio fed `count` checkpoints of the parents:
               identical reports. Then the sweep at k in (15, 32, 33), run_cohort of two
               trios with the parental superset, run_evidence to BAM, SAM and FASTQ, and
-              group_sites: identical reports, superset rows and file bytes.
+              group_sites: identical reports, superset rows and file bytes. Then the trio
+              as CRAMs (each sample's codec of phase 8, with its FASTA), with a SAM child,
+              as sorted BAMs + BAI and CRAMs + CRAI under a region, and over HTTP:
+              run_trio on the card and on the CPU gives identical reports, and the
+              full-trio ones equal the BAM trio's.
 4. main     — run_trio on a 4 Mbp genome with 3 x 262,144 reads of 151 bp, written as BAMs,
               at k=31, batch_reads=16384, accum_batches=16, table_capacity=2^23, decoded by
               the C++ feeder, under a torch.profiler trace of the device (busy time by
@@ -82,10 +88,31 @@ without a card or without the package beside it. Phases, each printed as one JSO
               the evidence BAM holds exactly the child reads with a valid window whose
               canonical k-mer is a candidate, every planted SNV lies inside a chrS site and
               every site holds one. The extraction's plain version may not run in phase 7.
+8. inputs   — phase 4's reads and config: the genome as a FASTA with its .fai; each sample
+              as a reference-based CRAM written by the port's writer in coordinate order
+              (mom CRAM 3.0 rANS 4x8, dad CRAM 3.1 rANS Nx16, child CRAM 3.1 arith; a worker
+              process each, as for each sorted BAM) with its .crai, whose columnar decode must give the reads'
+              sequences; coordinate-sorted BAMs with their .bai; the child as SAM. The
+              CRAM trio through run_trio (the columnar feeder, pack_chunks x 3, never the
+              record loop; 48 launches) and run_trio_spill into a device store (4 passes,
+              3 partition launches): phase 4's report. run_trio with --region
+              chrS:1000001-3000000 on the BAMs (BAI) and on the CRAMs (CRAI), and `call
+              --regions-bed` with two intervals 100 bp apart: candidates and tables_n equal
+              the numpy reference over the reads whose span [pos, pos+151) meets the
+              region (a read over both intervals once), launches the sum of each sample's
+              ceil(reads / 16384). run_trio with the SAM child, and on the three BAMs
+              served by a Range-capable HTTP server on 127.0.0.1 (and the region over HTTP
+              through the BAI): phase 4's report and the local region report. `call
+              --evidence-out --sites-out` on the CRAM trio: phase 4's report, phase 7's
+              evidence reads (CRAM names are ordinals in the file), every candidate k-mer
+              in exactly one site (a CRAM record has no position, so sites group by the
+              read graph). `call --profile-dir` on the BAM trio: a torch.profiler trace
+              whose kernel events name extract_kmers. Phase 8 also runs with the
+              extraction's plain version refused.
 
 BAMs store reverse-strand reads in reference orientation at the position of their first
 stored base, as an aligner does; canonical counting does not see the strand. Each path of
-phases 4 to 7 runs with every kernel's launch count set to 0 just before it and read just
+phases 4 to 8 runs with every kernel's launch count set to 0 just before it and read just
 after; the counts come from those runs alone (the block sort is a probe that no path
 launches). Then a ``kernels`` line (one entry per kernel), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -95,6 +122,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import http.server
 import io
 import json
 import os
@@ -103,6 +131,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -773,28 +802,37 @@ def sample_reads(rng, genome, n_rate, n=N_READS):
     return pos, rev, codes
 
 
-def write_bam(path, name, codes, pos, rev, genome_len, lens=None):
-    """One BAM record a row of ``codes`` (reads as sequenced); ``lens`` trims row i to its
-    first lens[i] bases. A reverse-strand read is stored as an aligner stores it: in
-    reference orientation (the trimmed read reverse-complemented), at the reference position
-    of its first stored base."""
-    from denovo_kmer_tpu_torch.io.bam import BamRecord, BamWriter
+def bam_records(name, codes, pos, rev, lens=None, order=None):
+    """One BamRecord a row of ``codes`` (reads as sequenced), in ``order`` (row indices;
+    all rows in turn by default), named ``{name}_r{row}``; ``lens`` trims row i to its first
+    lens[i] bases. A reverse-strand read is stored as an aligner stores it: in reference
+    orientation (the trimmed read reverse-complemented), at the reference position of its
+    first stored base."""
+    from denovo_kmer_tpu_torch.io.bam import BamRecord
 
     alphabet = np.frombuffer(b"ACGTN", np.uint8)
     text = alphabet[codes].tobytes().decode()
     # row i reverse-complemented: its trimmed read's reverse complement is the row's last n
     text_rc = alphabet[np.where(codes < 4, 3 - codes, 4)[:, ::-1]].tobytes().decode()
     L = codes.shape[1]
+    for i in (range(codes.shape[0]) if order is None else order):
+        n = L if lens is None else int(lens[i])
+        if rev[i]:
+            seq, start = text_rc[i * L + L - n:(i + 1) * L], int(pos[i]) + L - n
+        else:
+            seq, start = text[i * L:i * L + n], int(pos[i])
+        yield BamRecord(name=f"{name}_r{i}", flag=0x10 if rev[i] else 0, refid=0,
+                        pos=start, mapq=60, cigar=((n, 0),), seq=seq)
+
+
+def write_bam(path, name, codes, pos, rev, genome_len, lens=None, order=None):
+    """``bam_records`` of the rows written as a BAM on one reference, chrS."""
+    from denovo_kmer_tpu_torch.io.bam import BamWriter
+
     with open(path, "wb") as f, BamWriter(f, references=[("chrS", genome_len)],
                                           level=1) as w:
-        for i in range(codes.shape[0]):
-            n = L if lens is None else int(lens[i])
-            if rev[i]:
-                seq, start = text_rc[i * L + L - n:(i + 1) * L], int(pos[i]) + L - n
-            else:
-                seq, start = text[i * L:i * L + n], int(pos[i])
-            w.write(BamRecord(name=f"{name}_r{i}", flag=0x10 if rev[i] else 0, refid=0,
-                              pos=start, mapq=60, cigar=((n, 0),), seq=seq))
+        for rec in bam_records(name, codes, pos, rev, lens, order):
+            w.write(rec)
 
 
 def write_mixed_trio(rng, outdir, genome=None, child_genome=None, genome_len=None,
@@ -1609,7 +1647,459 @@ def phase_evidence_sites(work, main):
            "sites": len(spans), "evidence_wall_s": ev_stats["wall_s"],
            "sites_wall_s": site_stats["wall_s"], "check_s": time.perf_counter() - t0}
     emit({"phase": "evidence_sites", "config": MAIN_CFG, **out})
-    return out
+    return {**out, "hit_reads": set(np.nonzero(hit)[0].tolist())}
+
+
+# ---------------------------------------------------------------------------------------
+# phase 8: the inputs -- CRAM, BAM/CRAM regions, SAM, remote URLs, --profile-dir
+# ---------------------------------------------------------------------------------------
+
+#: each sample's CRAM: block method (an attribute of io/cram.py) and CRAM version
+CRAM_CODECS = {"mom": ("M_RANS", (3, 0)), "dad": ("M_RANSNX16", (3, 1)),
+               "child": ("M_ARITH", (3, 1))}
+REGION = "chrS:1000001-3000000"  # 1-based inclusive: 0-based [1,000,000, 3,000,000)
+REGION_SPAN = (1_000_000, 3_000_000)
+#: two BED intervals (0-based half-open) 100 bp apart: a read over the gap overlaps both
+REGIONS_BED = ((500_000, 1_000_000), (1_000_100, 1_600_000))
+
+
+class RangeHandler(http.server.SimpleHTTPRequestHandler):
+    """SimpleHTTPRequestHandler plus RFC 7233 single-range GETs (206): a BAI-driven region
+    read over HTTP seeks by Range, which SimpleHTTPRequestHandler alone ignores."""
+
+    def send_head(self):
+        rng = self.headers.get("Range")
+        if not rng or not rng.startswith("bytes="):
+            return super().send_head()
+        try:
+            f = open(self.translate_path(self.path), "rb")
+        except OSError:
+            self.send_error(404)
+            return None
+        with f:
+            size = os.fstat(f.fileno()).st_size
+            a, _, b = rng[len("bytes="):].partition("-")
+            start = int(a) if a else max(size - int(b), 0)
+            end = min(int(b), size - 1) if (a and b) else size - 1
+            if start >= size:
+                self.send_error(416)
+                return None
+            f.seek(start)
+            data = f.read(end - start + 1)
+        self.send_response(206)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Range", f"bytes {start}-{end}/{size}")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        return io.BytesIO(data)
+
+    def log_message(self, *a):
+        pass
+
+
+@contextlib.contextmanager
+def serve(directory):
+    """Serve ``directory`` on 127.0.0.1 from a thread; yields the base URL."""
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(RangeHandler, directory=directory))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+
+
+@contextlib.contextmanager
+def counting(module, name, counts):
+    """Count the calls of ``module.name`` in ``counts[name]``."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return real(*a, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, real)
+
+
+def stored_codes(codes, rev):
+    """Full-length reads in reference orientation, as bam_records stores them."""
+    return np.where(rev[:, None], np.where(codes < 4, 3 - codes, 4)[:, ::-1], codes)
+
+
+def write_fasta(path, text, name="chrS"):
+    """The sequence ``text`` as contig ``name`` in 60-column lines, with its .fai (the
+    port's build_fai)."""
+    from denovo_kmer_tpu_torch.io.fasta import build_fai
+
+    with open(path, "w") as f:
+        f.write(f">{name}\n")
+        f.write("".join(text[i:i + 60] + "\n" for i in range(0, len(text), 60)))
+    build_fai(path)
+
+
+def write_cram_sample(path, stored, starts, flags, genome_text, codec):
+    """One sample's reads (rows of ``stored`` in file order, 0-based ``starts``) as a
+    reference-based CRAM through the port's writer, with its .crai; → seconds. Runs in a
+    worker process of its own."""
+    from denovo_kmer_tpu_torch.io import cram
+    from denovo_kmer_tpu_torch.io.crai import write_crai
+
+    t0 = time.perf_counter()
+    L = stored.shape[1]
+    text = np.frombuffer(b"ACGTN", np.uint8)[stored].tobytes().decode()
+    mapped = [(text[i * L:(i + 1) * L], int(starts[i]) + 1, int(flags[i]), None)
+              for i in range(len(starts))]
+    method, version = codec
+    cram.write_cram(path, [], mapped=mapped, reference=genome_text,
+                    method=getattr(cram, method), version=version,
+                    sam_header=f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chrS\t"
+                               f"LN:{len(genome_text)}\n")
+    write_crai(path)
+    return time.perf_counter() - t0
+
+
+def write_sorted_bam(path, name, codes, pos, rev, order):
+    """``write_bam`` of the rows in ``order`` (coordinate order) and its .bai (the port's
+    write_bai); → seconds. Runs in a worker process of its own."""
+    from denovo_kmer_tpu_torch.io.bai import write_bai
+
+    t0 = time.perf_counter()
+    write_bam(path, name, codes, pos, rev, GENOME_LEN, order=order)
+    write_bai(path)
+    return time.perf_counter() - t0
+
+
+def overlapping(pos, intervals, read_len=READ_LEN):
+    """Rows whose reference span [pos, pos + read_len) meets any of the 0-based half-open
+    ``intervals`` (bai.record_ref_span of a full-length match), each row once."""
+    hit = np.zeros(len(pos), bool)
+    for b, e in intervals:
+        hit |= (pos < e) & (pos + read_len > b)
+    return hit
+
+
+def tsv_candidates(path):
+    """(value, child, mom, dad) rows of a candidate TSV."""
+    from denovo_kmer_tpu_torch.oracle.scalar import encode_kmer
+
+    with open(path) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f if not line.startswith("#")]
+    return sorted((encode_kmer(r[0]), int(r[1]), int(r[2]), int(r[3])) for r in rows)
+
+
+def phase_inputs(work, main, evidence7):
+    """CRAM, region, SAM, remote and --profile-dir inputs at phase 4's width, each held to
+    phase 4's report, phase 7's evidence or the numpy reference over the reads it reads."""
+    import concurrent.futures
+    import glob
+    import multiprocessing
+
+    from denovo_kmer_tpu_torch import pipeline, sites
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.io import bai, native, sam
+    from denovo_kmer_tpu_torch.io.bam import read_bam_records
+    from denovo_kmer_tpu_torch.io.cram import CramReader
+    from denovo_kmer_tpu_torch.io.fasta import load_reference_indexed
+    from denovo_kmer_tpu_torch.ops import pack
+    from denovo_kmer_tpu_torch.pipeline import run_trio, run_trio_spill
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    d = os.path.join(work, "inputs")
+    os.makedirs(d)
+    cfg = EngineConfig(**MAIN_CFG)
+    B, names = cfg.batch_reads, ("mom", "dad", "child")
+    samples, want_report, batches = main["samples"], main["report"], main["batches"]
+    out, by_path = {}, {}
+
+    # ---- fixtures: the FASTA, coordinate-sorted BAMs + BAI, CRAMs + CRAI, a SAM child ----
+    t0 = time.perf_counter()
+    fa = os.path.join(d, "genome.fa")
+    genome_text = np.frombuffer(b"ACGTN", np.uint8)[main["genome"]].tobytes().decode()
+    write_fasta(fa, genome_text)
+    order = {s: np.argsort(samples[s][0], kind="stable") for s in names}
+    stored = {s: stored_codes(samples[s][2], samples[s][1])[order[s]] for s in names}
+    paths = {s: {"bam": os.path.join(d, f"{s}.bam"), "cram": os.path.join(d, f"{s}.cram")}
+             for s in names}
+    with concurrent.futures.ProcessPoolExecutor(
+            6, mp_context=multiprocessing.get_context("spawn")) as pool:
+        crams = {s: pool.submit(write_cram_sample, paths[s]["cram"], stored[s],
+                                samples[s][0][order[s]],
+                                np.where(samples[s][1], 0x10, 0)[order[s]], genome_text,
+                                CRAM_CODECS[s]) for s in names}
+        bams = {s: pool.submit(write_sorted_bam, paths[s]["bam"], s, samples[s][2],
+                               samples[s][0], samples[s][1], order[s]) for s in names}
+        t1 = time.perf_counter()
+        sam_child = sam.write_sam(os.path.join(d, "child.sam"),
+                                  list(bam_records("child", samples["child"][2],
+                                                   samples["child"][0], samples["child"][1])),
+                                  references=[("chrS", GENOME_LEN)])
+        sam_write_s = time.perf_counter() - t1
+        cram_write_s = {s: w.result() for s, w in crams.items()}
+        bam_write_s = {s: w.result() for s, w in bams.items()}
+    fixtures_s = time.perf_counter() - t0
+
+    # ---- the CRAMs decode to the BAMs' sequences (a fixture fault is not a port fault) ----
+    ref_map = load_reference_indexed(fa)
+    cram_decode_s = {}
+    for s in names:
+        t0 = time.perf_counter()
+        with open(paths[s]["cram"], "rb") as f:
+            chunks = list(CramReader(f, reference=ref_map).iter_seq_chunks(
+                cfg.filter_flag_mask, cfg.max_read_len, with_quals=False))
+        cram_decode_s[s] = time.perf_counter() - t0
+        flat = np.concatenate([c.flat for c in chunks])
+        want = np.frombuffer(b"ACGTN", np.uint8)[stored[s]].ravel()
+        if not np.array_equal(flat, want):
+            raise AssertionError(f"{s}.cram decodes to other sequences than its reads")
+    if not native.native_available():
+        raise AssertionError("the native codecs did not build")
+
+    cfg_ref = dataclasses.replace(cfg, reference_fasta=fa)
+    cram_trio = [paths[s]["cram"] for s in names]
+
+    def trio_run(name, fn, want_launches, want_partition=0):
+        m = Metrics()
+        res, wall, launches = run_counted(lambda: fn(m))
+        if launches["extract_kmers"] != want_launches:
+            raise AssertionError(f"{name}: extract_kmers launched {launches['extract_kmers']}"
+                                 f" times, expected {want_launches}")
+        if launches["radix_partition"] != want_partition:
+            raise AssertionError(f"{name}: radix_partition launched "
+                                 f"{launches['radix_partition']} times, expected "
+                                 f"{want_partition}")
+        by_path[name] = launches
+        out[name] = {"wall_s": wall, "feed_wait_s": m.seconds.get("feed_wait", 0.0),
+                     "launches": launches, "reads_ingested": m.counters["reads_ingested"]}
+        return res
+
+    # ---- the CRAM trio, through the columnar feeder ----
+    calls = {}
+    with counting(pack, "pack_chunks", calls), counting(pipeline, "_record_stream", calls):
+        res = trio_run("cram_trio", lambda m: run_trio(*cram_trio, cfg_ref, m, device="cuda"),
+                       batches)
+    if calls != {"pack_chunks": 3}:
+        raise AssertionError(f"the CRAM trio's feeders: {calls}, expected pack_chunks x 3")
+    if res.report != want_report:
+        raise AssertionError("run_trio on the CRAM trio: report differs from phase 4's")
+    windows = 3 * -(-batches // 3 // cfg.accum_batches)
+    res = trio_run("cram_spill_store", lambda m: run_trio_spill(
+        *cram_trio, cfg_ref, SPILL_PASSES, metrics=m, device_store_rows=STORE_ROWS,
+        device="cuda"), batches, windows)
+    if res.report != want_report:
+        raise AssertionError("run_trio_spill on the CRAM trio: report differs from phase 4's")
+
+    # ---- regions: the numpy reference over the reads each region reads ----
+    def region_reference(intervals):
+        masks = {s: overlapping(samples[s][0], intervals) for s in names}
+        ref = {s: reference_counts(samples[s][2][masks[s]]) for s in names}
+        return (reference_candidates(ref, cfg), {s: len(ref[s][0]) for s in names},
+                sum(-(-int(m_.sum()) // B) for m_ in masks.values()),
+                {s: int(m_.sum()) for s, m_ in masks.items()})
+
+    t0 = time.perf_counter()
+    want_region, want_n, region_batches, region_reads = region_reference([REGION_SPAN])
+    want_bed, _, bed_batches, bed_reads = region_reference(REGIONS_BED)
+    both = {s: int(overlapping(samples[s][0], REGIONS_BED[:1]).__and__(
+        overlapping(samples[s][0], REGIONS_BED[1:])).sum()) for s in names}
+    region_check_s = time.perf_counter() - t0
+    bam_trio = [paths[s]["bam"] for s in names]
+    region_reports = {}
+    for name, trio, c in (("bam_region", bam_trio, cfg), ("cram_region", cram_trio, cfg_ref)):
+        res = trio_run(name, lambda m: run_trio(*trio, c, m, region=REGION, device="cuda"),
+                       region_batches)
+        if res.candidates != want_region or res.tables_n != want_n:
+            raise AssertionError(f"{name}: candidates or tables_n differ from the numpy "
+                                 "reference over the region's reads")
+        region_reports[name] = res.report
+    bed = os.path.join(d, "targets.bed")
+    with open(bed, "w") as f:
+        f.write("".join(f"chrS\t{b}\t{e}\n" for b, e in REGIONS_BED))
+    bed_tsv = os.path.join(d, "bed.tsv")
+    _, wall, launches = run_counted(lambda: _cli(
+        ["call", "--mom", bam_trio[0], "--dad", bam_trio[1], "--child", bam_trio[2],
+         "-o", bed_tsv, "--regions-bed", bed, "--accum-batches", str(cfg.accum_batches),
+         *cli_flags(cfg)]))
+    if tsv_candidates(bed_tsv) != sorted(want_bed):
+        raise AssertionError("call --regions-bed differs from the numpy reference")
+    if launches["extract_kmers"] != bed_batches:
+        raise AssertionError(f"call --regions-bed: {launches['extract_kmers']} launches, "
+                             f"expected {bed_batches}")
+    by_path["bam_regions_bed"] = launches
+    out["bam_regions_bed"] = {"wall_s": wall, "launches": launches}
+    out["regions"] = {"region": REGION, "region_reads": region_reads,
+                      "region_batches": region_batches, "bed": [list(i) for i in REGIONS_BED],
+                      "bed_reads": bed_reads, "bed_reads_over_both": both,
+                      "bed_batches": bed_batches, "candidates": len(want_region),
+                      "bed_candidates": len(want_bed), "reference_s": region_check_s}
+
+    # ---- a SAM child beside BAM parents ----
+    pa = main["paths"]
+    res = trio_run("sam_child", lambda m: run_trio(pa["mom"], pa["dad"], sam_child, cfg, m,
+                                                   device="cuda"), batches)
+    if res.report != want_report:
+        raise AssertionError("run_trio with a SAM child: report differs from phase 4's")
+
+    # ---- remote: phase 4's BAMs and the sorted BAMs (+ BAI) over HTTP ----
+    with serve(work) as url:
+        urls = [f"{url}/{os.path.relpath(pa[s], work)}" for s in names]
+        res = trio_run("http_trio", lambda m: run_trio(*urls, cfg, m, device="cuda"), batches)
+        if res.report != want_report:
+            raise AssertionError("run_trio over HTTP: report differs from phase 4's")
+        sorted_urls = [f"{url}/inputs/{s}.bam" for s in names]
+        if bai.load_index_for(sorted_urls[0]) is None:
+            raise AssertionError("the BAI beside the URL was not found")
+        res = trio_run("http_region", lambda m: run_trio(*sorted_urls, cfg, m, region=REGION,
+                                                         device="cuda"), region_batches)
+        if res.report != region_reports["bam_region"]:
+            raise AssertionError("a region over HTTP differs from the local region report")
+
+    # ---- call --evidence-out --sites-out on the CRAM trio ----
+    ev_bam, sites_tsv, tsv = (os.path.join(d, n) for n in ("ev.bam", "sites.tsv", "c.tsv"))
+    ev_stats, site_stats, call_launches = {}, {}, {}
+    with launches_of(pipeline, "run_evidence", ev_stats, call_launches), \
+            launches_of(sites, "group_sites", site_stats, call_launches):
+        _, wall, rest = run_counted(lambda: _cli(
+            ["call", *sum((["--" + s, p] for s, p in zip(names, cram_trio)), []),
+             "-o", tsv, "--reference", fa, "--evidence-out", ev_bam, "--sites-out", sites_tsv,
+             "--accum-batches", str(cfg.accum_batches), *cli_flags(cfg)]))
+    _add_launches(call_launches, rest)
+    per_sample = batches // 3
+    got = {"cram_call_evidence_sites": call_launches, "cram_evidence": ev_stats["launches"],
+           "cram_sites": site_stats["launches"]}
+    want = {"cram_call_evidence_sites": batches + 2 * per_sample,
+            "cram_evidence": per_sample, "cram_sites": per_sample}
+    if {k_: v["extract_kmers"] for k_, v in got.items()} != want:
+        raise AssertionError(f"CRAM evidence/sites launches {got}, expected {want}")
+    by_path.update(got)
+    with open(tsv) as f:
+        if f.read() != want_report:
+            raise AssertionError("call on the CRAM trio: the report differs from phase 4's")
+    # mapped CRAM records are named m<ordinal in the file>: map them back to the reads
+    rows = [int(r.name[1:]) for r in read_bam_records(ev_bam)]
+    got_reads = set(order["child"][rows].tolist())
+    if len(rows) != len(got_reads) or got_reads != evidence7["hit_reads"]:
+        raise AssertionError(f"CRAM evidence: {len(rows)} reads, phase 7's "
+                             f"{len(evidence7['hit_reads'])}")
+    # a CRAM record carries no alignment position (in both packages), so sites group by the
+    # read graph: every candidate k-mer lies in exactly one site
+    with open(sites_tsv) as f:
+        site_rows = [line.rstrip("\n").split("\t") for line in f if not line.startswith("#")]
+    site_kmers = [km for r in site_rows for km in r[-1].split(",")]
+    cand_kmers = [line.split("\t")[0] for line in want_report.splitlines()[1:]]
+    if sorted(site_kmers) != sorted(cand_kmers):
+        raise AssertionError("CRAM sites: the sites' k-mers are not the candidates, once each")
+    out["cram_evidence_sites"] = {"wall_s": wall, "evidence_reads": len(rows),
+                                  "sites": len(site_rows),
+                                  "evidence_wall_s": ev_stats["wall_s"],
+                                  "sites_wall_s": site_stats["wall_s"], "launches": got}
+
+    # ---- call --profile-dir on the BAM trio ----
+    pdir = os.path.join(d, "profile")
+    ptsv = os.path.join(d, "profiled.tsv")
+    _, wall, launches = run_counted(lambda: _cli(
+        ["call", "--mom", pa["mom"], "--dad", pa["dad"], "--child", pa["child"], "-o", ptsv,
+         "--profile-dir", pdir, "--accum-batches", str(cfg.accum_batches), *cli_flags(cfg)]))
+    traces = glob.glob(os.path.join(pdir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile-dir wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernel_events = [e for e in events if e.get("cat") == "kernel"
+                     and "extract_kmers" in e.get("name", "")]
+    if not kernel_events:
+        raise AssertionError("the profile trace names no extract_kmers kernel")
+    with open(ptsv) as f:
+        if f.read() != want_report:
+            raise AssertionError("call --profile-dir: the report differs from phase 4's")
+    if launches["extract_kmers"] != batches:
+        raise AssertionError(f"call --profile-dir: {launches['extract_kmers']} launches")
+    by_path["profile_call"] = launches
+    out["profile_call"] = {"wall_s": wall, "trace_bytes": os.path.getsize(traces[0]),
+                           "events": len(events), "extract_kernel_events": len(kernel_events),
+                           "launches": launches}
+
+    emit({"phase": "inputs", "config": MAIN_CFG, "fixtures_s": fixtures_s,
+          "cram_codecs": {s: f"{m_} CRAM {v[0]}.{v[1]}" for s, (m_, v) in CRAM_CODECS.items()},
+          "cram_write_s": cram_write_s, "cram_decode_s": cram_decode_s,
+          "cram_bytes": {s: os.path.getsize(paths[s]["cram"]) for s in names},
+          "bam_bytes": {s: os.path.getsize(paths[s]["bam"]) for s in names},
+          "sorted_bam_and_bai_write_s": bam_write_s, "sam_write_s": sam_write_s, **out})
+    return by_path
+
+
+def phase_parity_inputs(work, small):
+    """cuda == cpu on phase 3's small trio written as CRAMs (each sample's codec, with the
+    FASTA), as a SAM child and as sorted BAMs with their BAI, and served over HTTP:
+    run_trio on a BAM and a CRAM region, on the CRAM trio, with the SAM child and on the
+    URLs gives identical reports on both devices; the full-trio ones equal the BAM trio's."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.io import bai, cram, sam
+    from denovo_kmer_tpu_torch.io.bam import read_bam_records, sort_bam
+    from denovo_kmer_tpu_torch.io.crai import write_crai
+    from denovo_kmer_tpu_torch.io.synth import TrioSpec, make_trio
+    from denovo_kmer_tpu_torch.pipeline import run_trio
+
+    d = os.path.dirname(small["child"])
+    spec = TrioSpec(genome_len=20000, seed=0)  # phase_parity's trio
+    reference = make_trio(spec).reference
+    cfg = EngineConfig(k=K, max_read_len=128, batch_reads=1024, accum_batches=1,
+                       table_capacity=1 << 16)
+    fa = os.path.join(d, "ref.fa")
+    write_fasta(fa, reference, spec.ref_name)
+    cram_cfg = dataclasses.replace(cfg, reference_fasta=fa)
+    names = ("mom", "dad", "child")
+    header = f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{spec.ref_name}\tLN:{len(reference)}\n"
+    sorted_bams, crams = [], []
+    for s_ in names:
+        sb = sort_bam(small[s_], os.path.join(d, f"{s_}.sorted.bam"))
+        bai.write_bai(sb)
+        sorted_bams.append(sb)
+        recs = list(read_bam_records(sb))
+        crams.append(os.path.join(d, f"{s_}.cram"))
+        method, version = CRAM_CODECS[s_]
+        cram.write_cram(crams[-1], [], mapped=[(r.seq, r.pos + 1, r.flag, r.qual)
+                                               for r in recs],
+                        reference=reference, method=getattr(cram, method), version=version,
+                        sam_header=header)
+        write_crai(crams[-1])
+    sam_child = sam.write_sam(os.path.join(d, "child.sam"),
+                              list(read_bam_records(small["child"])),
+                              references=[(spec.ref_name, len(reference))])
+    bam_trio = (small["mom"], small["dad"], small["child"])
+    want = run_trio(*bam_trio, cfg, device="cuda").report
+    region = f"{spec.ref_name}:5001-15000"
+    out = {}
+    with serve(d) as url:
+        runs = {
+            "bam_region": (sorted_bams, cfg, region), "cram_region": (crams, cram_cfg, region),
+            "cram": (crams, cram_cfg, None), "sam_child": ((*bam_trio[:2], sam_child), cfg,
+                                                           None),
+            "http": ([f"{url}/{os.path.basename(p_)}" for p_ in bam_trio], cfg, None)}
+        for name, (trio, c, reg) in runs.items():
+            gpu, wall, launches = run_counted(
+                lambda: run_trio(*trio, c, region=reg, device="cuda"))
+            t0 = time.perf_counter()
+            cpu = run_trio(*trio, c, region=reg, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            if (gpu.report, gpu.tables_n) != (cpu.report, cpu.tables_n):
+                raise AssertionError(f"{name}: run_trio on cuda != on cpu")
+            if reg is None and gpu.report != want:
+                raise AssertionError(f"{name}: report differs from the BAM trio's")
+            if launches["extract_kmers"] == 0 or gpu.report.count("\n") < 2:
+                raise AssertionError(f"{name}: no extraction on the card, or no candidate")
+            out[name] = {"cuda_s": wall, "cpu_s": cpu_s,
+                         "launches": launches["extract_kmers"],
+                         "candidates": gpu.report.count("\n") - 1}
+    if out["bam_region"]["launches"] >= out["cram"]["launches"]:
+        raise AssertionError("the region run extracted as many batches as the whole trio")
+    emit({"phase": "parity_inputs", "region": region, **out})
 
 
 def device_time(prof, trace_path, wall_s):
@@ -1620,7 +2110,7 @@ def device_time(prof, trace_path, wall_s):
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f).get("traceEvents", [])
-    spans, kernels = [], {}
+    spans, kernels, extract_events = [], {}, 0
     kinds = {"extract_kernel": 0.0, "partition_kernel": 0.0, "other_kernels": 0.0,
              "copies": 0.0}
     for e in events:
@@ -1634,6 +2124,7 @@ def device_time(prof, trace_path, wall_s):
             kinds["copies"] += dur
         elif "extract_kmers_kernel" in name:
             kinds["extract_kernel"] += dur
+            extract_events += 1
         elif "radix_partition" in name:
             kinds["partition_kernel"] += dur
         else:
@@ -1648,13 +2139,15 @@ def device_time(prof, trace_path, wall_s):
             busy += b - max(a, end)
             end = b
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return {"events": len(spans), "busy_s": busy, "idle_share": 1.0 - busy / wall_s,
+    return {"events": len(spans), "extract_kernel_events": extract_events,
+            "busy_s": busy, "idle_share": 1.0 - busy / wall_s,
             **{f"{kind}_s": s for kind, s in kinds.items()},
             "top_kernels_s": dict(top)}
 
 
 def phase_feeder():
-    """Build the C++ BAM feeder (g++, zlib) on this host: phase 4 requires it."""
+    """Build the port's native library (the C++ BAM feeder and the CRAM codecs; g++, zlib)
+    on this host: phases 4 and 8 require it."""
     from denovo_kmer_tpu_torch.io import native
 
     t0 = time.perf_counter()
@@ -1698,6 +2191,7 @@ def main() -> int:
         small = phase_parity(work)
         phase_parity_buckets(work)
         phase_parity_slice(work, small)
+        phase_parity_inputs(work, small)
         main_run = phase_main(rng, work)
         multipass = phase_multipass(work, main_run["paths"], main_run["report"],
                                     main_run["batches"])
@@ -1707,6 +2201,7 @@ def main() -> int:
             sweep = phase_sweep(main_run)
             cohort = phase_cohort(rng, work, main_run)
             evidence = phase_evidence_sites(work, main_run)
+            inputs = phase_inputs(work, main_run, evidence)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1722,7 +2217,7 @@ def main() -> int:
                "run_trio_npz": ckpt["run_trio_npz"]["launches"],
                "count_mom": ckpt["count_mom"]["launches"],
                "sweep": sweep["launches"], "cohort": cohort["launches"],
-               **evidence["launches"]}
+               **evidence["launches"], **inputs}
     emit({"kernels": [{
         "name": "extract_kmers", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",

@@ -21,9 +21,14 @@ Subcommands (the same flags and output as ``python -m denovo_kmer_tpu``):
     probe       query k-mer counts in a ``count`` checkpoint (``--kmers`` or stdin)
     synth-trio  generate a deterministic synthetic trio (test/bench fixture)
 
+Reads come from BAM, CRAM (3.0/3.1; ``--reference`` for reference-based CRAM), SAM (plain or
+gzip), FASTQ or FASTA, as local paths or ``http(s)://``, ``s3://`` and ``gs://`` URLs.
+``--region chr20:1-2,000`` (BAM through its .bai/.csi, CRAM through its .crai, a full-scan
+filter without an index) or ``--regions-bed`` (BAM) restricts the reads.
 ``--read-len-buckets 64,112,160`` packs and extracts each read at the smallest width that
-holds it; ``--ingest-threads N`` sets the C++ BAM feeder's decode threads. Flags of paths
-not ported yet (mesh, regions, profiling) exit non-zero and name ROADMAP.md.
+holds it; ``--ingest-threads N`` sets the C++ BAM feeder's decode threads; ``call
+--profile-dir DIR`` writes a ``torch.profiler`` Chrome trace. ``--mesh`` (multi-device) is not
+ported yet: it exits non-zero and names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -84,8 +89,14 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="batches staged per accumulation window before a flush. Integer, "
                         "or 'auto' to size from the device's memory (CLI default 32; the "
                         "library EngineConfig default is a conservative 8)")
-    e.add_argument("--region", default=None, help=f"restrict BAM inputs ({_NOT_YET})")
-    e.add_argument("--regions-bed", default=None, help=f"BED regions ({_NOT_YET})")
+    e.add_argument("--region", default=None,
+                   help="restrict BAM/CRAM inputs to a genomic region (chr20 or "
+                        "chr20:1,000-2,000; uses a .bai/.csi/.crai next to the file when "
+                        "present, full-scan filter otherwise)")
+    e.add_argument("--regions-bed", default=None,
+                   help="restrict BAM inputs to the intervals of a BED3+ file "
+                        "(merged per contig, each overlapping read counted once "
+                        "- samtools view -M -L semantics)")
     e.add_argument("--passes", type=int, default=1,
                    help="hash-pass partitioned multi-pass build: each pass's table holds "
                         "~1/N of the uniques (re-decodes the reads every pass unless "
@@ -108,21 +119,48 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                         "default 4; 0 = synchronous; also via DENOVO_KMER_INGEST_THREADS)")
     e.add_argument("--json-metrics", action="store_true")
     e.add_argument("--profile-dir", type=str, default=None,
-                   help=f"write a profiler trace here ({_NOT_YET})")
+                   help="`call`: write a torch.profiler Chrome trace (CPU and CUDA "
+                        "activity) of the run into this directory; the other "
+                        "subcommands accept the flag and ignore it")
 
 
 def _reject_unported(args) -> None:
     """Loud exit for flags whose paths are not ported yet: silently ignoring one would
     leave a user believing it took effect."""
-    unported = [
-        ("--mesh", tuple(getattr(args, "mesh", (1, 1))) != (1, 1)),
-        ("--region", getattr(args, "region", None) is not None),
-        ("--regions-bed", getattr(args, "regions_bed", None) is not None),
-        ("--profile-dir", getattr(args, "profile_dir", None) is not None),
-    ]
-    for flag, given in unported:
-        if given:
-            raise SystemExit(f"{flag}: {_NOT_YET}")
+    if tuple(getattr(args, "mesh", (1, 1))) != (1, 1):
+        raise SystemExit(f"--mesh: {_NOT_YET}")
+
+
+def _resolve_region(args):
+    """--region (single string) or --regions-bed (BED file -> region list);
+    mutually exclusive. The list form flows through every pipeline's
+    _record_stream (multi-region BAM iterator, samtools view -M -L)."""
+    bed = getattr(args, "regions_bed", None)
+    if bed:
+        if args.region:
+            raise SystemExit("--region and --regions-bed are mutually exclusive")
+        from denovo_kmer_tpu_torch.io.bai import parse_bed
+
+        return parse_bed(bed)
+    return args.region
+
+
+def _profiler(args):
+    """``--profile-dir``: a ``torch.profiler`` context over the call (CPU activity, and CUDA
+    on the card) that writes a Chrome trace (``*.pt.trace.json``) into the directory; a
+    null context without the flag."""
+    import contextlib
+
+    if not args.profile_dir:
+        return contextlib.nullcontext()
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if args.device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(args.profile_dir))
 
 
 def _accum_kwargs(args) -> dict:
@@ -200,14 +238,17 @@ def cmd_call(args) -> int:
     cfg = _cfg_from_args(args)
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
     trio = (args.mom, args.dad, args.child, cfg)
-    if args.passes > 1 and (args.spill is not None or args.spill_rows is not None):
-        result = run_trio_spill(*trio, args.passes, spill_dir=args.spill,
-                                device_store_rows=args.spill_rows, metrics=metrics,
-                                device=args.device)
-    elif args.passes > 1:
-        result = run_trio_multipass(*trio, args.passes, metrics, device=args.device)
-    else:
-        result = run_trio(*trio, metrics, device=args.device)
+    region = _resolve_region(args)
+    with _profiler(args):
+        if args.passes > 1 and (args.spill is not None or args.spill_rows is not None):
+            result = run_trio_spill(*trio, args.passes, spill_dir=args.spill,
+                                    device_store_rows=args.spill_rows, metrics=metrics,
+                                    region=region, device=args.device)
+        elif args.passes > 1:
+            result = run_trio_multipass(*trio, args.passes, metrics, region=region,
+                                        device=args.device)
+        else:
+            result = run_trio(*trio, metrics, region=region, device=args.device)
 
     if args.output_format == "fasta":
         from denovo_kmer_tpu_torch.oracle.scalar import format_fasta
@@ -255,13 +296,15 @@ def _evidence_after_call(args, cfg, result) -> None:
         if args.evidence_out:
             from denovo_kmer_tpu_torch.pipeline import run_evidence
 
-            ev = run_evidence(args.child, tsv, cfg, args.evidence_out, device=args.device)
+            ev = run_evidence(args.child, tsv, cfg, args.evidence_out,
+                              region=_resolve_region(args), device=args.device)
             print(f"evidence: {ev.n_reads_matched}/{ev.n_reads_scanned} "
                   f"reads -> {ev.out_path}", file=sys.stderr)
         if args.sites_out:
             from denovo_kmer_tpu_torch.sites import group_sites, write_sites_tsv
 
-            sites = group_sites(args.child, tsv, cfg, device=args.device)
+            sites = group_sites(args.child, tsv, cfg, region=_resolve_region(args),
+                                device=args.device)
             write_sites_tsv(sites, args.sites_out)
             print(f"sites: {len(result.candidates)} candidate k-mers -> "
                   f"{len(sites)} loci -> {args.sites_out}", file=sys.stderr)
@@ -290,7 +333,7 @@ def cmd_sweep(args) -> int:
     ks = [int(x) for x in args.ks.split(",")]
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
     results = run_trio_multi_k(args.mom, args.dad, args.child, cfg, ks, metrics,
-                               device=args.device)
+                               region=_resolve_region(args), device=args.device)
     for k, res in sorted(results.items()):
         path = args.output_pattern.format(k=k)
         with open(path, "w") as f:
@@ -381,7 +424,7 @@ def cmd_cohort(args) -> int:
     os.makedirs(args.outdir, exist_ok=True)
     results, superset = run_cohort(trios, cfg, metrics,
                                    build_parental_superset=not args.no_superset,
-                                   device=args.device)
+                                   region=_resolve_region(args), device=args.device)
     for name, res in results.items():
         path = os.path.join(args.outdir, f"{name}.candidates.tsv")
         with open(path, "w") as f:
@@ -405,7 +448,8 @@ def cmd_evidence(args) -> int:
     _reject_unported(args)
     cfg = _cfg_from_args(args)
     res = run_evidence(args.child, args.candidates, cfg, args.output,
-                       per_candidate_out=args.per_candidate, device=args.device)
+                       region=_resolve_region(args), per_candidate_out=args.per_candidate,
+                       device=args.device)
     print(f"evidence: {res.n_reads_matched}/{res.n_reads_scanned} reads -> "
           f"{res.out_path}", file=sys.stderr)
     return 0
@@ -417,7 +461,8 @@ def cmd_sites(args) -> int:
 
     _reject_unported(args)
     cfg = _cfg_from_args(args)
-    sites = group_sites(args.child, args.candidates, cfg, device=args.device)
+    sites = group_sites(args.child, args.candidates, cfg, region=_resolve_region(args),
+                        device=args.device)
     write_sites_tsv(sites, args.output)
     print(f"sites: {len(sites)} loci -> {args.output}", file=sys.stderr)
     return 0
@@ -431,6 +476,8 @@ def cmd_count(args) -> int:
     _reject_unported(args)
     cfg = _cfg_from_args(args)
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
+    if (args.region or getattr(args, "regions_bed", None)) and args.resume:
+        raise SystemExit("--region and --resume are mutually exclusive")
     _reject_multipass_flags(args)
     with metrics.timer("build"):
         if args.resume:
@@ -440,7 +487,8 @@ def cmd_count(args) -> int:
                 args.reads, cfg, args.output + ".resume.npz", metrics,
                 save_every_flushes=args.ckpt_every, device=args.device)
         else:
-            table = build_sample_table(args.reads, cfg, metrics, device=args.device)
+            table = build_sample_table(args.reads, cfg, metrics, region=_resolve_region(args),
+                                       device=args.device)
     save_table(args.output, table, cfg, source=args.reads)
     print(metrics.summary(), file=sys.stderr)
     print(f"unique k-mers: {int(table.n)} -> {args.output}", file=sys.stderr)
@@ -526,8 +574,10 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pc = sub.add_parser("call", help="trio de novo candidate calling")
-    pc.add_argument("--mom", required=True, help="mother reads (BAM/FASTQ/FASTA)")
-    pc.add_argument("--dad", required=True, help="father reads (BAM/FASTQ/FASTA)")
+    pc.add_argument("--mom", required=True,
+                    help="mother reads (BAM/CRAM/SAM/FASTQ/FASTA, a path or a URL)")
+    pc.add_argument("--dad", required=True,
+                    help="father reads (BAM/CRAM/SAM/FASTQ/FASTA, a path or a URL)")
     pc.add_argument("--child", required=True)
     pc.add_argument("-o", "--output", default="-")
     pc.add_argument("--evidence-out", default=None,
@@ -543,7 +593,7 @@ def main(argv=None) -> int:
     psite = sub.add_parser(
         "sites", help="group an existing candidate TSV into loci using the "
                       "child reads' evidence (candidate-site reporter)")
-    psite.add_argument("child", help="child reads (BAM/FASTQ/FASTA)")
+    psite.add_argument("child", help="child reads (BAM/CRAM/SAM/FASTQ/FASTA)")
     psite.add_argument("candidates", help="candidate TSV from `call`")
     psite.add_argument("-o", "--output", required=True)
     _add_engine_args(psite)
@@ -580,7 +630,7 @@ def main(argv=None) -> int:
     pe = sub.add_parser(
         "evidence", help="write the child reads containing any candidate k-mer "
                          "(forward or reverse complement) to a BAM, SAM or FASTQ")
-    pe.add_argument("--child", required=True, help="child reads (BAM/FASTQ/FASTA)")
+    pe.add_argument("--child", required=True, help="child reads (BAM/CRAM/SAM/FASTQ/FASTA)")
     pe.add_argument("--candidates", required=True,
                     help="candidate TSV from `call` (first column = k-mer)")
     pe.add_argument("-o", "--output", required=True,

@@ -21,7 +21,6 @@ from typing import Dict, Optional, Sequence, Tuple
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.ops.table import KmerTable, empty_table, merge_tables
 from denovo_kmer_tpu_torch.pipeline import (
-    _NOT_YET,
     ScoringTableBuilder,
     SampleTableBuilder,
     TableOverflowError,
@@ -57,8 +56,6 @@ def run_trio_multi_k(
     the compacting build and ``call_from_score`` (the JAX package sends every k there when
     one k needs it; the results are the same).
     ``device=None`` runs on the card."""
-    if region:
-        raise NotImplementedError(f"--region: {_NOT_YET}")
     dev = resolve_device(device)
     m = metrics or Metrics()
     cfgs = {k: dataclasses.replace(base_cfg, k=k) for k in ks}
@@ -67,8 +64,8 @@ def run_trio_multi_k(
     for name, path in (("mom", mom_path), ("dad", dad_path)):
         lanes = {k: SampleTableBuilder(cfgs[k], dev).lane() for k in ks}
         with m.timer(f"build_{name}"):
-            _fold_placed(packed_batches(path, base_cfg), base_cfg, dev, list(lanes.values()),
-                         m)
+            _fold_placed(packed_batches(path, base_cfg, region), base_cfg, dev,
+                         list(lanes.values()), m)
         tables[name] = {k: lane.state for k, lane in lanes.items()}
         for k in ks:
             _check_table(tables[name][k], cfgs[k], f"unique k-mers at k={k}")
@@ -76,8 +73,8 @@ def run_trio_multi_k(
     scorers = {k: ScoringTableBuilder(cfgs[k], dev) for k in ks}
     lanes = {k: scorers[k].child_lane(tables["mom"][k], tables["dad"][k]) for k in ks}
     with m.timer("build_child"):
-        _fold_placed(packed_batches(child_path, base_cfg), base_cfg, dev, list(lanes.values()),
-                     m)
+        _fold_placed(packed_batches(child_path, base_cfg, region), base_cfg, dev,
+                     list(lanes.values()), m)
 
     out: Dict[int, TrioResult] = {}
     for k in ks:
@@ -111,8 +108,6 @@ def run_cohort(
     superset table (a k-mer absent from it is de novo cohort-wide); the superset is checked
     after every merge, since a later merge recomputes ``n`` from the surviving rows and
     would mask an earlier overflow. ``device=None`` runs on the card."""
-    if region:
-        raise NotImplementedError(f"--region: {_NOT_YET}")
     dev = resolve_device(device)
     m = metrics or Metrics()
     # one ingest step serves every sample: the cohort streams unbucketed, as the JAX
@@ -123,7 +118,7 @@ def run_cohort(
                 if build_parental_superset else None)
     results: Dict[str, TrioResult] = {}
     for trio in trios:
-        tables = _parent_tables(trio.mom, trio.dad, cfg, m, None, dev, step)
+        tables = _parent_tables(trio.mom, trio.dad, cfg, m, region, dev, step)
         if superset is not None:
             for parent in ("mom", "dad"):
                 superset = merge_tables(superset, tables[parent], cfg.table_capacity)
@@ -134,7 +129,7 @@ def run_cohort(
                         f"{n_sup} > {cfg.table_capacity}; rerun with a larger "
                         "--table-capacity")
         cands, child_uniques = score_child(cfg, dev, tables["mom"], tables["dad"],
-                                           trio.child, m, append_packed=step)
+                                           trio.child, m, region, append_packed=step)
         tables_n = {"mom": int(tables["mom"].n), "dad": int(tables["dad"].n),
                     "child": child_uniques}
         results[trio.name] = _trio_result(_candidate_parts(cands), cfg.k, m, tables_n)

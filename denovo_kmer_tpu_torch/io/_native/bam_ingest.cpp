@@ -46,6 +46,21 @@ struct Slot {
   std::string err;
 };
 
+#ifdef HAVE_LIBDEFLATE
+// One decompressor a thread, freed when the thread ends: the feeder's decode workers
+// start and stop with every BAM it opens.
+libdeflate_decompressor* thread_decompressor() {
+  struct Owner {
+    libdeflate_decompressor* d = libdeflate_alloc_decompressor();
+    ~Owner() {
+      if (d) libdeflate_free_decompressor(d);
+    }
+  };
+  static thread_local Owner owner;
+  return owner.d;
+}
+#endif
+
 bool inflate_block(const uint8_t* cdata, size_t clen, uint8_t* out, uint32_t isize,
                    std::string* err) {
   if (isize == 0) return true;
@@ -53,7 +68,7 @@ bool inflate_block(const uint8_t* cdata, size_t clen, uint8_t* out, uint32_t isi
   // one-shot whole-block decompress — ~2-3x zlib's streaming inflate; BGZF blocks are
   // complete raw-DEFLATE members, exactly libdeflate's fast path (the reference links
   // libdeflate for the same reason, SURVEY.md §0.1 ci.yml:27)
-  static thread_local libdeflate_decompressor* dec = libdeflate_alloc_decompressor();
+  libdeflate_decompressor* dec = thread_decompressor();
   if (dec) {
     size_t actual = 0;
     if (libdeflate_deflate_decompress(dec, cdata, clen, out, isize, &actual) !=
@@ -581,8 +596,7 @@ void bam_ingest_close(void* handle) {
 int64_t dk_gzip_decompress(const uint8_t* in, int64_t in_len, uint8_t* out,
                            int64_t out_len) {
 #ifdef HAVE_LIBDEFLATE
-  static thread_local libdeflate_decompressor* dec =
-      libdeflate_alloc_decompressor();
+  libdeflate_decompressor* dec = thread_decompressor();
   if (!dec || in_len <= 0) return -1;
   size_t actual = 0;
   if (libdeflate_gzip_decompress(dec, in, (size_t)in_len, out, (size_t)out_len,
@@ -600,8 +614,7 @@ int64_t dk_gzip_decompress(const uint8_t* in, int64_t in_len, uint8_t* out,
 int64_t dk_deflate_decompress(const uint8_t* in, int64_t in_len, uint8_t* out,
                               int64_t out_len) {
 #ifdef HAVE_LIBDEFLATE
-  static thread_local libdeflate_decompressor* dec =
-      libdeflate_alloc_decompressor();
+  libdeflate_decompressor* dec = thread_decompressor();
   if (!dec || in_len < 0) return -1;
   size_t actual = 0;
   if (libdeflate_deflate_decompress(dec, in, (size_t)in_len, out,

@@ -1,13 +1,15 @@
 """BAM codec (pure Python) — record-level reader/writer over BGZF.
 
-A copy of ``denovo_kmer_tpu/io/bam.py``'s ``BamRecord``, ``BamReader``, ``BamWriter`` and
-``read_bam_records`` (BAM v1, SAMv1 spec §4). The records are the same; the per-base nibble
-loops are replaced by table lookups, which decode and encode the same bytes faster.
+A copy of ``denovo_kmer_tpu/io/bam.py`` (BAM v1, SAMv1 spec §4): ``BamRecord``, ``BamReader``,
+``BamWriter``, ``read_bam_records`` (a local path or a URL, through ``io/remote.open_binary``),
+the virtual-offset range readers and ``sort_bam``. The records are the same; the per-base
+nibble loops are replaced by table lookups, which decode and encode the same bytes faster.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import struct
 from typing import BinaryIO, Iterator, List, Optional, Sequence, Tuple
 
@@ -22,6 +24,9 @@ NIB2BASE = "=ACMGRSVTWYHKDBN"
 BASE2NIB = {c: i for i, c in enumerate(NIB2BASE)}
 BASE2NIB.update({c.lower(): i for i, c in enumerate(NIB2BASE) if c.isalpha()})
 BASE2NIB["n"] = 15
+
+#: CIGAR operation characters by BAM op code (SAMv1 §4.2.2)
+CIGAR_OPS = "MIDNSHP=X"
 
 #: packed byte → its two bases (high nibble first)
 _PAIR = [(NIB2BASE[b >> 4] + NIB2BASE[b & 0xF]).encode() for b in range(256)]
@@ -201,7 +206,158 @@ class BamWriter:
 
 
 def read_bam_records(path: str) -> Iterator[BamRecord]:
-    """Iterate all records of a local BAM file (URLs come with a later slice)."""
-    with open(path, "rb") as f:
+    """Convenience: iterate all records of a BAM file path or http(s) URL (remote access —
+    the reference's HTSlib/libcurl capability, SURVEY.md §0.1 item 4)."""
+    from denovo_kmer_tpu_torch.io.remote import open_binary
+
+    with open_binary(path) as f:
         reader = BamReader(f)
         yield from reader
+
+
+def scan_split_offsets(
+    path: str, n_splits: int, max_samples: int = 1 << 16, return_counts: bool = False
+):
+    """One sequential pass over a BAM, returning ``n_splits + 1`` virtual offsets that
+    partition the records into ~equal contiguous ranges (SURVEY.md §5.8: per-host
+    virtual-offset ranges — the scalable alternative to record striping, which makes every
+    host decode the whole file).
+
+    Boundaries are exact record starts, so ranges are disjoint and their union is the whole
+    record stream. Sampling is adaptive: every record's offset is kept until the sample list
+    would exceed ``max_samples``, then the list is thinned 2x and the stride doubles — so
+    granularity is ``max(1, ~n/max_samples)`` records and ranges stay balanced for small
+    files too (a fixed stride starved all but one host below ~stride*n_splits records). The
+    scan runs once (typically on one coordinator host, broadcast to the rest); its cost is
+    one decode pass, amortized over n_hosts subsequent range-limited passes.
+    """
+    from denovo_kmer_tpu_torch.io.remote import open_binary
+
+    offsets: List[int] = []
+    stride = 1
+    with open_binary(path) as f:
+        reader = BamReader(f)
+        n = 0
+        offsets.append(reader.tell_virtual())
+        for _rec in reader:
+            n += 1
+            if n % stride == 0:
+                offsets.append(reader.tell_virtual())
+                if len(offsets) > max_samples:
+                    offsets = offsets[::2]
+                    stride *= 2
+        end = reader.tell_virtual()
+    # offsets[j] = start of record j*stride; pick the sampled offset nearest each target
+    splits = [offsets[0]]
+    recnos = [0]
+    for i in range(1, n_splits):
+        target = (n * i) // n_splits
+        j = min(round(target / stride), len(offsets) - 1)
+        splits.append(offsets[j])
+        recnos.append(min(j * stride, n))
+    splits.append(end)
+    recnos.append(n)
+    # guard monotonicity (tiny files can make neighboring targets collide)
+    for i in range(1, len(splits)):
+        splits[i] = max(splits[i], splits[i - 1])
+        recnos[i] = max(recnos[i], recnos[i - 1])
+    if return_counts:
+        # per-range RAW record counts (pre-filter): the basis for a collective-free
+        # deterministic step count in multi-host range feeding (distributed.steps_fixed)
+        return splits, [recnos[i + 1] - recnos[i] for i in range(n_splits)]
+    return splits
+
+
+def read_bam_records_range(path: str, vstart: int, vstop: int) -> Iterator[BamRecord]:
+    """Iterate the records whose start offsets lie in [vstart, vstop) — one host's range
+    from ``scan_split_offsets``."""
+    from denovo_kmer_tpu_torch.io.remote import open_binary
+
+    with open_binary(path) as f:
+        reader = BamReader(f)
+        reader.seek_virtual(vstart)
+        while reader.tell_virtual() < vstop:
+            try:
+                rec = next(reader)
+            except StopIteration:
+                return
+            yield rec
+
+
+def _sort_key(r: BamRecord):
+    """samtools coordinate order: placed-unmapped records (flag 0x4 with a
+    coordinate, e.g. at their mate's position) sort AT that coordinate; only
+    truly unplaced records (refid/pos < 0) go last."""
+    placed = r.refid >= 0 and r.pos >= 0
+    return (0, r.refid, r.pos) if placed else (1, 0, 0)
+
+
+def sort_bam(in_path: str, out_path: str, chunk_records: int = 1_000_000) -> str:
+    """Coordinate-sort a BAM with bounded memory (external merge sort, the
+    `samtools sort` spill-to-disk strategy): records stream in ``chunk_records``
+    slices, each slice sorts in memory, slices beyond the first spill to
+    temporary BAMs, and a k-way heap merge writes the output. One-chunk inputs
+    never touch disk. Equal-coordinate records keep input order (stable chunk
+    sort + (chunk, position) merge tie-break = a global stable sort). Required
+    before `write_bai`."""
+    import heapq
+    import tempfile
+
+    from denovo_kmer_tpu_torch.io.remote import open_binary
+
+    spills: List[str] = []
+    tmpdir = None
+    with open_binary(in_path) as f:
+        reader = BamReader(f)
+        refs = list(reader.references)
+        chunk: List[BamRecord] = []
+        for rec in reader:
+            chunk.append(rec)
+            if len(chunk) >= chunk_records:
+                chunk.sort(key=_sort_key)
+                if tmpdir is None:
+                    tmpdir = tempfile.mkdtemp(prefix="dk_sort_")
+                spill = os.path.join(tmpdir, f"chunk{len(spills)}.bam")
+                with open(spill, "wb") as sf, BamWriter(sf, references=refs) as w:
+                    for r in chunk:
+                        w.write(r)
+                spills.append(spill)
+                chunk = []
+    chunk.sort(key=_sort_key)
+
+    if not spills:  # single-chunk fast path: no temp files
+        with open(out_path, "wb") as f, BamWriter(f, references=refs) as w:
+            for r in chunk:
+                w.write(r)
+        return out_path
+
+    def stream(i):
+        if i < len(spills):
+            with open(spills[i], "rb") as sf:
+                yield from BamReader(sf)
+        else:
+            yield from chunk
+
+    try:
+        # heapq.merge over decorated streams: (key, chunk_idx, seq) is unique
+        # and reproduces the stable in-memory order
+        def decorated(i):
+            for seq, r in enumerate(stream(i)):
+                yield (*_sort_key(r), i, seq), r
+
+        with open(out_path, "wb") as f, BamWriter(f, references=refs) as w:
+            for _k, r in heapq.merge(*(decorated(i)
+                                       for i in range(len(spills) + 1))):
+                w.write(r)
+    finally:
+        for s in spills:
+            try:
+                os.remove(s)
+            except OSError:
+                pass
+        if tmpdir is not None:
+            try:
+                os.rmdir(tmpdir)
+            except OSError:
+                pass
+    return out_path

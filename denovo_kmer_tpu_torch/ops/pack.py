@@ -1,8 +1,8 @@
 """Host-side 2-bit packing: read records → fixed-width batch arrays (numpy).
 
-A copy of ``PackedReads``, ``padded_length``, ``pack_seqs``, ``_pack_codes``,
-``pack_records`` and ``pack_records_bucketed`` from ``denovo_kmer_tpu/ops/pack.py``, with the
-same layout.
+A copy of ``PackedReads``, ``padded_length``, ``pack_seqs``, ``_pack_codes``, ``SeqChunk``,
+``_pack_flat``, ``pack_chunks`` (the columnar CRAM feeder's packer), ``pack_records`` and
+``pack_records_bucketed`` from ``denovo_kmer_tpu/ops/pack.py``, with the same layout.
 
 Layout (per batch of B reads, padded length Lp = ceil(max_read_len/32)*32):
 - ``words``  (B, Lp//16) uint32 — base j of read i sits in word j//16, bits 2*(j%16)..+1 (LSB-first)
@@ -113,6 +113,128 @@ def _pack_codes(
     pv = bool(int(valid.sum()) == int(length.sum()))
     return PackedReads(words=words, vwords=vwords, length=length, n_reads=n_reads,
                        prefix_valid=pv)
+
+
+@dataclasses.dataclass
+class SeqChunk:
+    """Flat, record-major sequence/quality byte columns for a group of reads
+    (one decoded slice) — the zero-per-record handoff from a columnar reader
+    (io/cram.py ``iter_seq_chunks``) to ``pack_chunks``. Producers already
+    apply the flag filter and max_read_len truncation.
+
+    - ``flat``:  uint8[sum(lens)] raw sequence bytes
+    - ``lens``:  int64[n] per-read byte counts (0 = sequence-less record)
+    - ``qflat``: uint8 aligned with ``flat`` (0xFF = no stored quality, which
+      passes any min_base_quality ≤ 255 — same outcome as a None qual list),
+      or None when no read in the chunk stores qualities
+    """
+
+    flat: np.ndarray
+    lens: np.ndarray
+    qflat: Optional[np.ndarray]
+
+    @property
+    def n_reads(self) -> int:
+        return len(self.lens)
+
+
+def _pack_flat(
+    flat: np.ndarray, lens: np.ndarray, qflat: Optional[np.ndarray],
+    cfg: EngineConfig, batch_size: int,
+) -> PackedReads:
+    """PackedReads from flat record-major sequence bytes — ``pack_seqs``'s
+    vectorized core starting from bytes instead of strings (identical
+    code/valid semantics: non-ACGT → invalid, quality below the floor →
+    invalid, codes zeroed where invalid)."""
+    Lp = padded_length(cfg.max_read_len)
+    B = batch_size
+    nb = len(lens)
+    if nb > B:
+        raise ValueError(f"batch overflow: {nb} > {B}")
+    codes = np.zeros((B, Lp), dtype=np.uint8)
+    valid = np.zeros((B, Lp), dtype=bool)
+    length = np.zeros(B, dtype=np.int32)
+    if nb:
+        c = _CODE_LUT[flat]
+        ok = c != 255
+        if cfg.min_base_quality > 0 and qflat is not None:
+            ok = ok & (qflat >= cfg.min_base_quality)
+        L0 = int(lens[0])
+        if L0 and bool(np.all(lens == L0)):
+            # uniform read length (the dominant short-read shape): plain 2-D
+            # block writes, no index arrays
+            codes[:nb, :L0] = np.where(ok, c, 0).reshape(nb, L0)
+            valid[:nb, :L0] = ok.reshape(nb, L0)
+        else:
+            ends = np.cumsum(lens)
+            rows = np.repeat(np.arange(nb), lens)
+            cols = np.arange(int(ends[-1])) - np.repeat(ends - lens, lens)
+            codes[rows, cols] = np.where(ok, c, 0)
+            valid[rows, cols] = ok
+        length[:nb] = lens
+    return _pack_codes(codes, valid, length, nb)
+
+
+def pack_chunks(
+    chunks: Iterable[SeqChunk], cfg: EngineConfig
+) -> Iterator[PackedReads]:
+    """Batch SeqChunks into PackedReads batches of ``cfg.batch_reads`` —
+    bit-identical to ``pack_records`` over the same records (differential
+    contract: tests/test_cram_packed.py). Requires min_base_quality ≤ 255
+    (byte-quality sentinel; Phred+33 tops out at 93)."""
+    if not 0 <= cfg.min_base_quality <= 255:
+        raise ValueError(
+            f"pack_chunks requires 0 <= min_base_quality <= 255, "
+            f"got {cfg.min_base_quality}")
+    B = cfg.batch_reads
+    use_q = cfg.min_base_quality > 0
+    pend: List[SeqChunk] = []
+    rows = 0
+
+    def emit(nb: int) -> PackedReads:
+        nonlocal rows
+        take_flat: List[np.ndarray] = []
+        take_len: List[np.ndarray] = []
+        take_q: List[np.ndarray] = []
+        got = 0
+        while got < nb:
+            c = pend[0]
+            n = len(c.lens)
+            if got + n <= nb:
+                sel = c
+                pend.pop(0)
+            else:
+                cut = nb - got
+                nbytes = int(c.lens[:cut].sum())
+                sel = SeqChunk(
+                    flat=c.flat[:nbytes], lens=c.lens[:cut],
+                    qflat=None if c.qflat is None else c.qflat[:nbytes])
+                pend[0] = SeqChunk(
+                    flat=c.flat[nbytes:], lens=c.lens[cut:],
+                    qflat=None if c.qflat is None else c.qflat[nbytes:])
+            take_flat.append(sel.flat)
+            take_len.append(sel.lens)
+            if use_q:
+                take_q.append(
+                    sel.qflat if sel.qflat is not None
+                    else np.full(len(sel.flat), 0xFF, np.uint8))
+            got += len(sel.lens)
+        rows -= nb
+        one = len(take_flat) == 1
+        flat = take_flat[0] if one else np.concatenate(take_flat)
+        lens = take_len[0] if one else np.concatenate(take_len)
+        qflat = (take_q[0] if one else np.concatenate(take_q)) if use_q else None
+        return _pack_flat(flat, lens, qflat, cfg, B)
+
+    for c in chunks:
+        if c.n_reads == 0:
+            continue
+        pend.append(c)
+        rows += c.n_reads
+        while rows >= B:
+            yield emit(B)
+    if rows:
+        yield emit(rows)
 
 
 def pack_records(

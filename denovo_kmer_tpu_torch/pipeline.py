@@ -13,7 +13,9 @@ and length buckets (``cfg.read_len_buckets``: each read packed, and extracted, a
 smallest bucket width that holds it). ``build_sample_table_resumable`` persists the running
 table with the BAM virtual-offset cursor so that a killed ``count`` resumes where it stopped.
 Plain local BAMs are decoded by the C++ feeder (``io/native.py``) when it builds, else in
-Python; the batches are the same.
+Python; local CRAMs by the columnar feeder (``io/cram.py`` → ``ops/pack.pack_chunks``); region,
+SAM, FASTQ/FASTA and remote (``http(s)://``, ``s3://``, ``gs://``) sources by the Python record
+loop. The batches are the same whichever feeder makes them.
 
 Entry points run on the card unless the caller asks for the CPU (``device="cpu"``).
 """
@@ -56,9 +58,6 @@ from denovo_kmer_tpu_torch.utils.checkpoint import maybe_load_flat_table
 from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
 _BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
-
-_NOT_YET = "not yet ported to the PyTorch/CUDA package (see ROADMAP.md)"
-
 
 class TableOverflowError(RuntimeError):
     """Unique k-mers exceeded table capacity — rerun with a larger --table-capacity."""
@@ -135,14 +134,43 @@ class _FakeRec:
 
 
 def _record_stream(path: str, cfg: EngineConfig, region: Optional[str] = None) -> Iterator:
-    """Open a reads file as a record stream (BAM/FASTQ/FASTA by extension)."""
-    if region:
-        raise NotImplementedError(f"--region: {_NOT_YET}")
-    if "://" in path:
-        raise NotImplementedError(f"remote input ({path}): {_NOT_YET}")
+    """Open a reads file as a record stream (BAM/CRAM/SAM/FASTQ/FASTA by extension; a local
+    path or a URL).
+
+    ``region`` (``chr20`` / ``chr20:1,000-2,000``): BAM (BAI/CSI) or CRAM (CRAI) —
+    served through the index when one sits next to the file, full-scan overlap
+    filter otherwise (SAM text has no index format; pre-convert for region queries).
+    A list of regions (``--regions-bed``) takes BAM only.
+    """
     low = path.lower()
+    if region and not low.endswith((".bam", ".cram")):
+        raise ValueError(f"--region requires a BAM or CRAM input, got {path}")
+    if isinstance(region, (list, tuple)):
+        # --regions-bed: multi-region restriction (samtools view -M -L semantics)
+        if not low.endswith(".bam"):
+            raise ValueError(
+                f"--regions-bed requires BAM inputs (CRAM supports a single "
+                f"--region), got {path}")
+        from denovo_kmer_tpu_torch.io.bai import read_bam_records_regions
+
+        return read_bam_records_regions(path, list(region))
     if low.endswith(".bam"):
+        if region:
+            from denovo_kmer_tpu_torch.io.bai import read_bam_records_region
+
+            return read_bam_records_region(path, region)
         return read_bam_records(path)
+    if low.endswith(".cram") and region:
+        from denovo_kmer_tpu_torch.io.crai import read_cram_records_region
+        from denovo_kmer_tpu_torch.io.fasta import load_reference_indexed
+
+        ref = (load_reference_indexed(cfg.reference_fasta)
+               if cfg.reference_fasta else None)
+        return read_cram_records_region(path, region, reference=ref)
+    if low.endswith((".sam", ".sam.gz")):
+        from denovo_kmer_tpu_torch.io.sam import read_sam_records
+
+        return read_sam_records(path)
     if low.endswith((".fastq", ".fq", ".fastq.gz", ".fq.gz")):
         def gen():
             for name, seq, qual in read_fastq(path):
@@ -153,8 +181,10 @@ def _record_stream(path: str, cfg: EngineConfig, region: Optional[str] = None) -
             for name, seq in read_fasta(path):
                 yield _FakeRec(seq, None, 0, name)
         return gen()
-    if low.endswith((".sam", ".sam.gz", ".cram")):
-        raise NotImplementedError(f"SAM/CRAM input ({path}): {_NOT_YET}")
+    if low.endswith(".cram"):
+        from denovo_kmer_tpu_torch.io.cram import read_cram_records
+
+        return read_cram_records(path, reference=cfg.reference_fasta)
     raise ValueError(f"unrecognized reads file extension: {path}")
 
 
@@ -427,8 +457,9 @@ def packed_batches(source, cfg: EngineConfig,
                    region: Optional[str] = None) -> Iterator[PackedReads]:
     """PackedReads stream from a reads-file path or an open record iterable, through the
     fastest eligible feeder: a plain local BAM with no region takes the C++ decode+pack
-    feeder (``io/native.py``) when it builds; everything else, and every BAM when it does
-    not, the Python record loop. The batches are bit-identical either way."""
+    feeder (``io/native.py``) when it builds; a local CRAM with no region takes the columnar
+    feeder (``CramReader.iter_seq_chunks`` → ``ops/pack.pack_chunks``, no record objects);
+    everything else the Python record loop. The batches are bit-identical either way."""
     if not isinstance(source, str):
         return pack_records(source, cfg)
     if region is None and source.lower().endswith(".bam") and "://" not in source:
@@ -443,6 +474,24 @@ def packed_batches(source, cfg: EngineConfig,
                     feeder.close()
 
             return gen()
+    if (region is None and source.lower().endswith(".cram")
+            and "://" not in source and cfg.min_base_quality <= 255):
+        from denovo_kmer_tpu_torch.io.cram import CramReader
+        from denovo_kmer_tpu_torch.io.fasta import load_reference_indexed
+        from denovo_kmer_tpu_torch.ops.pack import pack_chunks
+
+        def cram_gen():
+            ref = (load_reference_indexed(cfg.reference_fasta)
+                   if cfg.reference_fasta else None)
+            with open(source, "rb") as f:
+                reader = CramReader(f, reference=ref)
+                yield from pack_chunks(
+                    reader.iter_seq_chunks(
+                        cfg.filter_flag_mask, cfg.max_read_len,
+                        with_quals=cfg.min_base_quality > 0),
+                    cfg)
+
+        return cram_gen()
     return pack_records(_record_stream(source, cfg, region), cfg)
 
 
@@ -1086,7 +1135,7 @@ def candidate_read_batches(child_path: str, table: KmerTable, cfg: EngineConfig,
     from denovo_kmer_tpu_torch.ops.pack import pack_seqs
     from denovo_kmer_tpu_torch.ops.table import probe_table
 
-    records = _record_stream(child_path, cfg, region)  # unported inputs raise here
+    records = _record_stream(child_path, cfg, region)
     dev = table.keys.device
     B, P, W = cfg.batch_reads, cfg.windows_per_read, cfg.words
     scratch = empty_accumulator(B * P, W, dev)
@@ -1137,19 +1186,30 @@ def record_as_bam(r, ordinal: int):
 
 def source_header(path: str):
     """(references, SAM header text) of a reads source: ([], a default header) when the
-    format has none (FASTQ/FASTA). Reads the header only."""
-    default = "@HD\tVN:1.6\tSO:unsorted\n"
+    format has none (FASTQ/FASTA). Reads the header only; URLs through
+    ``io/remote.open_binary``."""
     low = path.lower()
-    if "://" in path:
-        raise NotImplementedError(f"remote input ({path}): {_NOT_YET}")
-    if low.endswith((".cram", ".sam", ".sam.gz")):
-        raise NotImplementedError(f"SAM/CRAM input ({path}): {_NOT_YET}")
+    default = "@HD\tVN:1.6\tSO:unsorted\n"
+    from denovo_kmer_tpu_torch.io.remote import open_binary
+
     if low.endswith(".bam"):
         from denovo_kmer_tpu_torch.io.bam import BamReader
 
-        with open(path, "rb") as f:
+        with open_binary(path) as f:
             r = BamReader(f)
             return r.references, (r.header_text or default)
+    if low.endswith(".cram"):
+        from denovo_kmer_tpu_torch.io.cram import CramReader
+
+        with open_binary(path) as f:
+            r = CramReader(f)
+            return r.references, (r.sam_header or default)
+    if low.endswith((".sam", ".sam.gz")):
+        from denovo_kmer_tpu_torch.io.sam import SamReader
+
+        with SamReader(path) as sr:
+            hdr = "\n".join(sr.header_lines)
+            return list(sr.references), (hdr + "\n" if hdr else default)
     return [], default
 
 

@@ -1,7 +1,9 @@
 """The port's `sweep`, `cohort`, `evidence` and `sites` subcommands and `call
 --evidence-out/--sites-out` (denovo_kmer_tpu_torch/cli.py) against the JAX CLI on the CPU,
-on the fixture of tests/test_cli.py: every output file byte-equal to the one the JAX CLI
-writes (the parental superset `.npz`: its arrays and meta equal). Tolerance: byte-equal."""
+on the fixture of tests/test_cli.py and on CRAM inputs (`--reference`) and region-restricted
+BAM/CRAM inputs (`--region`, `--regions-bed`): every output file byte-equal to the one the
+JAX CLI writes (the parental superset `.npz`: its arrays and meta equal); `call
+--profile-dir` writes a trace. Tolerance: byte-equal."""
 
 import json
 import os
@@ -170,10 +172,11 @@ def test_call_evidence_and_sites_out_match_jax(trio_dir, tmp_path, capsys, outpu
     ["sites", "c.bam", "c.tsv", "-o", "s.tsv"],
 ])
 def test_slice_commands_reject_unported_flags(trio_dir, argv):
-    """--mesh (the sharded twins) and --region exit non-zero, naming ROADMAP.md."""
+    """--mesh (the sharded twins) exits non-zero, naming ROADMAP.md, also beside a live
+    --region."""
     if argv[0] == "sweep":
         argv = [*argv, *_trio_args(trio_dir)]
-    for flag in (["--mesh", "2x2"], ["--region", "chr20"]):
+    for flag in (["--mesh", "2x2"], ["--mesh", "1x2", "--region", "chr20"]):
         with pytest.raises(SystemExit) as e:
             cli.main([*argv, *ENGINE_ARGS, "--device", "cpu", *flag])
         assert "not yet ported (ROADMAP.md)" in str(e.value.code)
@@ -187,3 +190,91 @@ def test_sweep_and_cohort_reject_passes(trio_dir, tmp_path):
                  ["cohort", str(man), "-o", str(tmp_path / "coh")]):
         with pytest.raises(SystemExit, match="only supported by `call`"):
             cli.main([*argv, "--passes", "2", *ENGINE_ARGS, "--device", "cpu"])
+
+
+# ---- the inputs of the seventh slice: CRAM (--reference), --region, --regions-bed ----
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    from _torch_inputs import write_inputs
+
+    return write_inputs(tmp_path_factory.mktemp("cli_inputs"))
+
+
+def _input_args(inputs, how, tmp_path):
+    """The reads flags of one input case: CRAM with --reference, CRAM or BAM with
+    --region, BAM with --regions-bed."""
+    fmt = "bam" if how.startswith("bam") else "cram"
+    extra = ["--reference", inputs["reference"]]
+    if how.endswith("_region"):
+        extra += ["--region", "chr20:600-2200"]
+    elif how.endswith("_bed"):
+        bed = tmp_path / "r.bed"
+        bed.write_text("chr20\t100\t900\nchr20\t1500\t2300\n")
+        extra += ["--regions-bed", str(bed)]
+    return {s: inputs[s][fmt] for s in ("mom", "dad", "child")}, extra
+
+
+CASES = ["cram", "cram_region", "bam_region", "bam_bed"]
+
+
+@pytest.mark.parametrize("how", CASES)
+def test_call_with_evidence_and_sites_on_new_inputs_matches_jax(inputs, tmp_path, how):
+    paths, extra = _input_args(inputs, how, tmp_path)
+    dirs = _run_both(tmp_path, lambda o: [
+        "call", "--mom", paths["mom"], "--dad", paths["dad"], "--child", paths["child"],
+        "-o", str(o / "c.tsv"), "--evidence-out", str(o / "ev.bam"), "--sites-out",
+        str(o / "s.tsv"), *extra])
+    _same_files(dirs, ["c.tsv", "ev.bam", "s.tsv"])
+    assert (dirs["port"] / "c.tsv").read_text().count("\n") > 1
+
+
+@pytest.mark.parametrize("how", ["cram", "bam_region"])
+def test_sweep_on_new_inputs_matches_jax(inputs, tmp_path, how):
+    paths, extra = _input_args(inputs, how, tmp_path)
+    dirs = _run_both(tmp_path, lambda o: [
+        "sweep", "--mom", paths["mom"], "--dad", paths["dad"], "--child", paths["child"],
+        "--ks", "15,21", "-o", str(o / "c.k{k}.tsv"), *extra])
+    _same_files(dirs, ["c.k15.tsv", "c.k21.tsv"])
+
+
+@pytest.mark.parametrize("how", ["cram", "cram_region"])
+def test_cohort_on_new_inputs_matches_jax(inputs, tmp_path, how):
+    paths, extra = _input_args(inputs, how, tmp_path)
+    man = tmp_path / "man.tsv"
+    man.write_text(f"t1\t{paths['mom']}\t{paths['dad']}\t{paths['child']}\n"
+                   f"t2\t{inputs['dad']['bam']}\t{paths['mom']}\t{paths['child']}\n")
+    dirs = _run_both(tmp_path, lambda o: ["cohort", str(man), "-o", str(o), *extra])
+    _same_files(dirs, ["t1.candidates.tsv", "t2.candidates.tsv"])
+    got, want = (_npz(dirs[p] / "parental_superset.npz") for p in ("port", "jax"))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("how", ["cram", "cram_region", "bam_bed"])
+def test_evidence_and_sites_on_new_inputs_match_jax(inputs, candidates_tsv, tmp_path, how):
+    paths, extra = _input_args(inputs, how, tmp_path)
+    dirs = _run_both(tmp_path, lambda o: [
+        "evidence", "--child", paths["child"], "--candidates", str(candidates_tsv), "-o",
+        str(o / "ev.sam"), "--per-candidate", str(o / "pc.tsv"), *extra])
+    _same_files(dirs, ["ev.sam", "pc.tsv"])
+    (tmp_path / "sites").mkdir()
+    dirs = _run_both(tmp_path / "sites", lambda o: [
+        "sites", paths["child"], str(candidates_tsv), "-o", str(o / "s.tsv"), *extra])
+    _same_files(dirs, ["s.tsv"])
+
+
+def test_call_profile_dir_writes_a_trace(inputs, tmp_path):
+    """call --profile-dir: a torch.profiler Chrome trace of the run (CPU activity here)
+    lands in the directory; the report is the one written without it."""
+    paths, extra = _input_args(inputs, "cram", tmp_path)
+    trio = ["--mom", paths["mom"], "--dad", paths["dad"], "--child", paths["child"]]
+    prof = tmp_path / "prof"
+    for out, flags in (("a.tsv", ["--profile-dir", str(prof)]), ("b.tsv", [])):
+        assert cli.main(["call", *trio, "-o", str(tmp_path / out), *ENGINE_ARGS, *extra,
+                         "--device", "cpu", *flags]) == 0
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    trace = json.loads(traces[0].read_text())
+    assert trace["traceEvents"]
+    assert (tmp_path / "a.tsv").read_text() == (tmp_path / "b.tsv").read_text()

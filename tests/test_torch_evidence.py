@@ -1,7 +1,8 @@
 """The port's candidate evidence (denovo_kmer_tpu_torch/pipeline.py: run_evidence and its
 helpers, io/sam.py's writer half) against the JAX package's run_evidence on the CPU, on the
 fixture of tests/test_evidence.py: BAM, SAM and FASTQ outputs and the per-candidate TSV
-byte-equal, for a BAM child and a FASTQ child. Tolerance: byte-equal."""
+byte-equal, for a BAM child, a FASTQ child, and SAM, CRAM and remote children.
+Tolerance: byte-equal."""
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from denovo_kmer_tpu_torch.pipeline import (
 torch.set_num_threads(1)
 
 CFG = dict(k=21, max_read_len=80, batch_reads=64, table_capacity=1 << 14, min_child_count=2)
+SPEC = TrioSpec(genome_len=3000, read_len=80, coverage=6.0, n_denovo_snvs=4, seed=33)
 
 
 @pytest.fixture(scope="module")
@@ -40,8 +42,7 @@ def trio(tmp_path_factory):
     """tests/test_evidence.py's trio, its call report as the candidate TSV, and the child
     as FASTQ."""
     d = tmp_path_factory.mktemp("ev")
-    paths = write_trio_bams(make_trio(TrioSpec(genome_len=3000, read_len=80, coverage=6.0,
-                                               n_denovo_snvs=4, seed=33)), str(d))
+    paths = write_trio_bams(make_trio(SPEC), str(d))
     cfg = EngineConfig(**CFG)
     res = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, device="cpu")
     assert res.candidates, "fixture produced no candidates"
@@ -171,9 +172,36 @@ def test_sam_writer_and_source_header_match_jax(trio):
 
 @pytest.mark.parametrize("path", ["child.sam", "child.cram", "http://host/child.bam"])
 def test_unported_sources_raise(trio, tmp_path, path):
-    _, _, tsv, _ = trio
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_evidence(path, tsv, EngineConfig(**CFG), str(tmp_path / "x.bam"), device="cpu")
+    """SAM, CRAM and remote children, refused before the port read them, now give the JAX
+    package's evidence BAM and header (the CRAM reference-based, written by the JAX
+    writer; the URL served from a local HTTP server)."""
+    from denovo_kmer_tpu.io.cram import M_RANS, write_cram
+    from denovo_kmer_tpu.io.sam import write_sam
+
+    from _torch_inputs import serve
+
+    d, paths, tsv, _ = trio
+    recs = list(read_bam_records(paths["child"]))
+    refs = source_header(paths["child"])[0]
+    cfg_kw = {}
+    if path == "child.sam":
+        source = write_sam(str(tmp_path / path), recs, references=refs)
+    elif path == "child.cram":
+        trio_ref = make_trio(SPEC).reference
+        ref_fa = tmp_path / "ref.fa"
+        ref_fa.write_text(f">{refs[0][0]}\n{trio_ref}\n")
+        source = str(tmp_path / path)
+        write_cram(source, [], mapped=[(r.seq, r.pos + 1, r.flag, r.qual) for r in recs],
+                   reference=trio_ref, method=M_RANS, rans_order=1,
+                   sam_header=f"@HD\tVN:1.6\n@SQ\tSN:{refs[0][0]}\tLN:{refs[0][1]}\n")
+        cfg_kw = dict(reference_fasta=str(ref_fa))
+    with serve(d) as url:
+        if path.startswith("http://"):
+            source = path.replace("http://host", url)
+        assert source_header(source) == tuple(jax_source_header(source))
+        out = _both(source, tsv, tmp_path, "bam", **cfg_kw)
+    assert out["port"][0].n_reads_matched == out["jax"][0].n_reads_matched > 0
+    assert out["port"][1] == out["jax"][1]
 
 
 def test_one_extraction_a_batch(trio, monkeypatch):

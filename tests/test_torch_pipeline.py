@@ -173,12 +173,14 @@ def test_cli_call_cpu_matches_jax_cli(trio_dir, tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--passes", "2", "--mesh", "2x2"], ["--mesh", "2x1"],
     ["--spill-rows", "1000", "--passes", "2", "--mesh", "1x2"],
-    ["--spill-rows", "1000", "--passes", "2", "--mesh", "2x1"], ["--region", "chr20"],
-    # the length buckets and the feeder threads are live, but not beside an unported flag
-    ["--regions-bed", "r.bed"], ["--read-len-buckets", "32,64", "--mesh", "2x2"],
-    ["--ingest-threads", "4", "--region", "chr20"],
-    # evidence and sites are live, but not beside an unported flag
-    ["--profile-dir", "prof"], ["--evidence-out", "ev.bam", "--region", "chr20"],
+    ["--spill-rows", "1000", "--passes", "2", "--mesh", "2x1"],
+    # regions, length buckets, feeder threads, profiling, evidence and sites are live, but
+    # not beside an unported flag
+    ["--region", "chr20", "--mesh", "2x2"],
+    ["--regions-bed", "r.bed", "--mesh", "1x2"], ["--read-len-buckets", "32,64", "--mesh", "2x2"],
+    ["--ingest-threads", "4", "--region", "chr20", "--mesh", "2x1"],
+    ["--profile-dir", "prof", "--mesh", "2x2"],
+    ["--evidence-out", "ev.bam", "--region", "chr20", "--mesh", "1x2"],
     ["--sites-out", "s.tsv", "--mesh", "2x2"],
 ])
 def test_cli_rejects_unported_flags(trio_dir, flag, capsys):

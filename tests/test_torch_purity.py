@@ -49,6 +49,10 @@ def test_import_loads_no_jax():
         "import denovo_kmer_tpu_torch.ops.block_sort, denovo_kmer_tpu_torch.utils.checkpoint\n"
         "import denovo_kmer_tpu_torch.io.native, denovo_kmer_tpu_torch.io.sam\n"
         "import denovo_kmer_tpu_torch.cohort, denovo_kmer_tpu_torch.sites\n"
+        "import denovo_kmer_tpu_torch.io.cram, denovo_kmer_tpu_torch.io.crai\n"
+        "import denovo_kmer_tpu_torch.io.bai, denovo_kmer_tpu_torch.io.remote\n"
+        "import denovo_kmer_tpu_torch.io.objstore, denovo_kmer_tpu_torch.io.tok3\n"
+        "import denovo_kmer_tpu_torch.io.fqz, denovo_kmer_tpu_torch.io.fasta\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -61,7 +65,8 @@ def test_import_loads_no_jax():
 
 def test_native_feeder_builds_from_the_port_sources(tmp_path, monkeypatch):
     """The g++ command of io/native.py compiles only files under denovo_kmer_tpu_torch/io/
-    _native/, and writes into the port's build directory."""
+    _native/ (the BAM feeder and the three CRAM codec sources), and writes into the port's
+    build directory."""
     from denovo_kmer_tpu_torch.io import native
 
     assert native.library_path().startswith(os.path.join(PORT, "io", "_native", "build"))
@@ -76,6 +81,8 @@ def test_native_feeder_builds_from_the_port_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(native.os, "replace", lambda a, b: None)
     assert native._build(str(tmp_path / "lib.so")) is None
     sources = [a for a in commands[0] if a.endswith((".cpp", ".cc", ".c"))]
-    assert sources == [os.path.join(PORT, "io", "_native", "bam_ingest.cpp")]
-    with open(sources[0]) as f:
-        assert "#include \"" not in f.read()  # no header from another tree
+    assert sources == [os.path.join(PORT, "io", "_native", f) for f in
+                       ("bam_ingest.cpp", "rans_codec.cpp", "cram_util.cpp", "arith_codec.cpp")]
+    for src in sources:
+        with open(src) as f:
+            assert "#include \"" not in f.read()  # no header from another tree
