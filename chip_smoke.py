@@ -110,9 +110,27 @@ without a card or without the package beside it. Phases, each printed as one JSO
               whose kernel events name extract_kmers. Phase 8 also runs with the
               extraction's plain version refused.
 
+9. sharded — the sharded engine (--mesh) on the one card, each mesh a grid of cuda:0
+              repeated (make_mesh with an explicit device list). First, on phase 3's small
+              trio, on the card and on the CPU: run_trio_sharded on (1,4), (2,2) and (4,1) at
+              k=31 and k=32 against the single-device run_trio, a route-overflow retry
+              (factor 0.05, retried until it fits), run_trio_multipass_sharded (2 passes),
+              run_trio_spill_sharded (3 passes, device store), run_trio_multi_k_sharded at
+              (15, 32, 33) against run_trio_multi_k, run_cohort_sharded of two trios (tuples
+              and the superset .npz, its key count run_cohort's) and the sharded probe, both
+              plans, against probe_table: everything equal. Then run_trio_sharded at phase
+              4's width on a 2x4 mesh (8 shards of 2,048 reads a batch, shard capacity 2^21),
+              under a torch.profiler trace: phase 4's report byte for byte, 48 x 8 extraction
+              launches, no other kernel; the route, fold, finalize and call seconds
+              (synchronized), feed_wait, idle share and peak memory. Through the CLI, `call
+              --mesh 2x2` on a host with fewer than 4 cards fails with the JAX package's
+              "needs 4 devices" message, and `call --mesh 1x1` gives phase 4's report.
+              Phase 2 also times the extraction at the 2x4 mesh's launch (2,048 reads, the
+              fill advancing through one shard's staging window).
+
 BAMs store reverse-strand reads in reference orientation at the position of their first
 stored base, as an aligner does; canonical counting does not see the strand. Each path of
-phases 4 to 8 runs with every kernel's launch count set to 0 just before it and read just
+phases 4 to 9 runs with every kernel's launch count set to 0 just before it and read just
 after; the counts come from those runs alone (the block sort is a probe that no path
 launches). Then a ``kernels`` line (one entry per kernel), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -386,7 +404,30 @@ def phase_kernels(rng):
     edges = extraction_edges(rng, dev, [extract_append])
     emit({"phase": "kernels", "kernel": "extract_kmers", "B": B,
           "staging_rows": window.rows, "edge_cases": edges, "cases": cases})
-    return cases, worst
+
+    # phase 9's launch: batch_reads / (R*T) reads of one shard, the fill advancing through
+    # one shard's staging window
+    shard_reads = B // (MESH[0] * MESH[1])
+    p = make_batch(rng, shard_reads, 160, 0.0)
+    words = as_int32_tensor(p.words).to(dev)
+    lengths = as_int32_tensor(p.length).to(dev)
+    args = (words, None, lengths, K, 160, True, 1, 0)
+    P = 160 - K + 1
+    err, n_valid = compare_extraction(extract_append, *args[:6], fill=3)
+    shard_window = StagingWindow(MAIN_CFG["accum_batches"] * shard_reads * P, dev)
+    nbytes, ops = extraction_bytes_ops(shard_reads, words.shape[1], K, 160, True, False)
+    bound_ms, bound_by = bound(nbytes, ops)
+    shard_case = dict(k=K, max_read_len=160, canonical=True, feed="lengths", B=shard_reads,
+                      staging_rows=shard_window.rows, windows=shard_reads * P, valid=n_valid,
+                      max_abs_err=err,
+                      ms=cuda_ms(shard_window.timed(extract_append, args, 2, shard_reads * P)),
+                      plain_ms=cuda_ms(shard_window.timed(append_plain, args, 2,
+                                                          shard_reads * P)),
+                      store_floor_ms=cuda_ms(store_floor(shard_window, 2, shard_reads * P)),
+                      bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops)
+    shard_window.accs.clear()
+    emit({"phase": "kernels", "kernel": "extract_kmers", "sharded_launch": shard_case})
+    return cases, max(worst, err), shard_case
 
 
 def partition_library(data, ids, n_buckets, block_lanes):
@@ -2102,6 +2143,236 @@ def phase_parity_inputs(work, small):
     emit({"phase": "parity_inputs", "region": region, **out})
 
 
+# ---------------------------------------------------------------------------------------
+# phase 9: the sharded engine (--mesh) on one card
+# ---------------------------------------------------------------------------------------
+
+MESH = (2, 4)  # the full-width mesh: eight shards, all on the one card
+SMALL_MESHES = ((1, 4), (2, 2), (4, 1))
+
+
+def card_mesh(shape, dev="cuda"):
+    """An R x T mesh of one device repeated: the way to run a mesh on one card (make_mesh
+    alone takes one card a shard)."""
+    from denovo_kmer_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape, [torch.device(dev)] * (shape[0] * shape[1]))
+
+
+def phase_parity_sharded(work, paths):
+    """Phase 9's small part, on the card and on the CPU, on phase 3's small trio: the
+    sharded trio on (1,4), (2,2), (4,1) at k=31 and k=32 against the single-device run_trio,
+    a route-overflow retry (factor 0.05), the sharded multipass (2 passes) and spill (3
+    passes, device store), the sharded sweep (15, 32, 33) against the single-device sweep,
+    the sharded cohort of two trios (tuples and the superset file) and the sharded probe,
+    both plans, against probe_table. Everything equal on both devices."""
+    from denovo_kmer_tpu_torch.cohort import (
+        TrioPaths,
+        run_cohort,
+        run_cohort_sharded,
+        run_trio_multi_k,
+        run_trio_multi_k_sharded,
+    )
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.ops.table import probe_table, table_to_numpy
+    from denovo_kmer_tpu_torch.parallel.pipeline import (
+        run_trio_multipass_sharded,
+        run_trio_sharded,
+        run_trio_spill_sharded,
+    )
+    from denovo_kmer_tpu_torch.parallel.probe import make_sharded_probe
+    from denovo_kmer_tpu_torch.parallel.sharded_table import ShardedKmerEngine
+    from denovo_kmer_tpu_torch.pipeline import build_sample_table, run_trio
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    base = dict(max_read_len=128, batch_reads=1024, accum_batches=1, table_capacity=1 << 16)
+    trio = (paths["mom"], paths["dad"], paths["child"])
+    second = os.path.join(work, "small_b")  # phase_parity_slice's second trio
+    trios = [TrioPaths("a", *trio), TrioPaths("b", *(os.path.join(second, f"{s}.bam")
+                                                     for s in ("mom", "dad", "child")))]
+    out = {}
+
+    def both(name, run, want=None):
+        """``run(device)`` on the card (launches counted from 0) and on the CPU: equal,
+        and equal to ``want`` where given."""
+        gpu, wall, launches = run_counted(lambda: run("cuda"))
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        if gpu != cpu:
+            raise AssertionError(f"{name}: the card and the CPU differ")
+        if want is not None and gpu != want:
+            raise AssertionError(f"{name}: differs from the single-device run")
+        if launches["extract_kmers"] == 0 and not name.startswith("probe"):
+            raise AssertionError(f"{name} launched no extraction on the card")
+        out[name] = {"cuda_s": wall, "cpu_s": cpu_s, "launches": launches}
+        return gpu
+
+    def key(res):
+        return res.report, res.tables_n
+
+    for k in (31, 32):
+        cfg = EngineConfig(k=k, **base)
+        want = key(run_trio(*trio, cfg, device="cuda"))
+        for shape in SMALL_MESHES:
+            c = dataclasses.replace(cfg, mesh_shape=shape)
+            both(f"k{k}_{shape[0]}x{shape[1]}",
+                 lambda d: key(run_trio_sharded(*trio, c, mesh=card_mesh(shape, d))), want)
+    cfg = EngineConfig(k=K, **base)
+    want = key(run_trio(*trio, cfg, device="cuda"))
+
+    retries = {}
+
+    def starved(d):
+        events = io.StringIO()
+        c = dataclasses.replace(cfg, mesh_shape=(1, 4), route_capacity_factor=0.05)
+        res = run_trio_sharded(*trio, c, Metrics(json_stream=events),
+                               mesh=card_mesh((1, 4), d), max_route_retries=8)
+        retries[d] = events.getvalue().count("route_overflow_retry")
+        return key(res)
+
+    both("route_retry", starved, want)
+    if not retries["cuda"] or retries["cuda"] != retries["cpu"]:
+        raise AssertionError(f"the starved route retried {retries} times")
+    out["route_retry"]["retries"] = retries["cuda"]
+    c22 = dataclasses.replace(cfg, mesh_shape=(2, 2))
+    both("multipass2", lambda d: key(run_trio_multipass_sharded(
+        *trio, c22, 2, mesh=card_mesh((2, 2), d))), want)
+    both("spill3", lambda d: key(run_trio_spill_sharded(
+        *trio, c22, 3, 1 << 16, mesh=card_mesh((2, 2), d))), want)
+    ks = (15, 32, 33)
+    single = {k: key(r) for k, r in run_trio_multi_k(*trio, cfg, ks, device="cuda").items()}
+    both("sweep_15_32_33", lambda d: {k: key(r) for k, r in run_trio_multi_k_sharded(
+        *trio, c22, ks, mesh=card_mesh((2, 2), d)).items()}, single)
+
+    def cohort(d):
+        path = os.path.join(work, f"superset_{d}.npz")
+        res, _ = run_cohort_sharded(trios, c22, mesh=card_mesh((2, 2), d), superset_out=path)
+        with np.load(path) as z:
+            return res, {name: z[name].tobytes() for name in z.files}
+
+    single_res, single_sup = run_cohort(trios, cfg, device="cuda")
+    res, sup = both("cohort", cohort)
+    if res != {name: r.candidates for name, r in single_res.items()}:
+        raise AssertionError("the sharded cohort's candidates differ from run_cohort's")
+    sup_n = int(np.frombuffer(sup["n"], np.int32).sum())
+    if sup_n != int(single_sup.n):
+        raise AssertionError(f"sharded superset holds {sup_n} keys, run_cohort's "
+                             f"{int(single_sup.n)}")
+
+    # the sharded probe, both plans: parental keys, absent keys, duplicates, some invalid
+    flat = build_sample_table(paths["mom"], cfg, device="cpu")
+    keys, _counts, n = table_to_numpy(flat)
+    rng = np.random.default_rng(9)
+    q = np.concatenate([keys[rng.integers(0, n, 3000)],
+                        rng.integers(0, 2**30, size=(1096, 2), dtype=np.uint32)])
+    queries = torch.from_numpy(q.astype(np.int64))
+    valid = torch.from_numpy(rng.random(len(q)) < 0.9)
+    expect = torch.where(valid, probe_table(flat, queries), 0)
+    for plan in ("alltoall", "ring"):
+        def probe(d, plan=plan):
+            eng = ShardedKmerEngine(c22, card_mesh((2, 2), d))
+            fn = make_sharded_probe(eng.mesh, dataclasses.replace(
+                c22, route_capacity_factor=2.0), plan=plan)
+            counts, ovf = fn(eng.place_flat_table(flat), queries.to(d), valid.to(d))
+            return counts.cpu().tolist(), int(ovf)
+
+        counts, ovf = both(f"probe_{plan}", probe)
+        if ovf or counts != expect.tolist():
+            raise AssertionError(f"the {plan} probe differs from probe_table (overflow {ovf})")
+    emit({"phase": "parity_sharded", "meshes": [list(s) for s in SMALL_MESHES], **out})
+    return out
+
+
+def phase_sharded(main):
+    """run_trio_sharded at phase 4's width on a 2x4 mesh of the one card: phase 4's report,
+    48 batches x 8 shards extraction launches, under a torch.profiler trace; the route,
+    fold, finalize and call seconds (each synchronized); then through the CLI `call --mesh
+    2x2` (one card a shard: refused with the JAX package's message) and `call --mesh 1x1`
+    (phase 4's report)."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.parallel import sharded_table
+    from denovo_kmer_tpu_torch.parallel.pipeline import run_trio_sharded
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    cfg = EngineConfig(**MAIN_CFG, mesh_shape=MESH)
+    paths = main["paths"]
+    stage_s = {}
+    engine = sharded_table.ShardedKmerEngine
+    patched = [(engine, "_route_window", "route"), (engine, "_fold_window", "fold"),
+               (engine, "_finalize_tables", "finalize"), (sharded_table, "call_rows", "call")]
+    real = [getattr(obj, attr) for obj, attr, _ in patched]
+
+    def synced(fn, stage):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stage_s[stage] = stage_s.get(stage, 0.0) + time.perf_counter() - t0
+            return res
+        return wrapped
+
+    m = Metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for (obj, attr, stage), fn in zip(patched, real):
+        setattr(obj, attr, synced(fn, stage))
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = run_trio_sharded(paths["mom"], paths["dad"], paths["child"], cfg, m,
+                                   mesh=card_mesh(MESH))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = read_launches()
+    finally:
+        for (obj, attr, _), fn in zip(patched, real):
+            setattr(obj, attr, fn)
+    peak = torch.cuda.max_memory_allocated()
+    trace = os.path.join(os.path.dirname(paths["mom"]), "sharded_trace.json")
+    device = device_time(prof, trace, t1 - t0)
+    if res.report != main["report"]:
+        raise AssertionError("run_trio_sharded on the 2x4 mesh: report differs from phase 4's")
+    shards = MESH[0] * MESH[1]
+    if launches["extract_kmers"] != main["batches"] * shards:
+        raise AssertionError(f"extract_kmers launched {launches['extract_kmers']} times for "
+                             f"{main['batches']} batches x {shards} shards")
+    if launches["radix_partition"] or launches["block_sort"]:
+        raise AssertionError(f"the sharded trio launched {launches}")
+
+    # the CLI: a mesh of one card a shard needs R*T cards; 1x1 is the single-device call
+    argv = ["call", "--mom", paths["mom"], "--dad", paths["dad"], "--child", paths["child"],
+            *cli_flags(cfg), "--accum-batches", str(cfg.accum_batches)]
+    refusal = None
+    if torch.cuda.device_count() < 4:
+        try:
+            _cli([*argv, "--mesh", "2x2"])
+        except ValueError as e:
+            refusal = str(e)
+        want = f"mesh (2, 2) needs 4 devices, have {torch.cuda.device_count()}"
+        if refusal != want:
+            raise AssertionError(f"call --mesh 2x2 on this host: {refusal!r}, not {want!r}")
+    report, wall_1x1, launches_1x1 = run_counted(lambda: _cli([*argv, "--mesh", "1x1"]))
+    if report != main["report"]:
+        raise AssertionError("call --mesh 1x1: the report differs from phase 4's")
+    sec = m.seconds
+    out = {"phase": "sharded", "config": MAIN_CFG, "mesh": list(MESH), "devices": "cuda:0 x 8",
+           "power": power_line(),
+           "wall_s": t1 - t0, "phase4_wall_s": main["wall_s"],
+           "feed_wait_s": sec.get("feed_wait", 0.0),
+           **{f"{name}_s": sec[name] for name in ("build_mom", "build_dad", "build_child",
+                                                  "trio_call")},
+           **{f"{stage}_s": t for stage, t in stage_s.items()},
+           "candidates": len(res.candidates), "tables_n": res.tables_n,
+           "batches": main["batches"], "launches": launches, "peak_device_bytes": peak,
+           "device": device, "cli_mesh_2x2": refusal,
+           "cli_mesh_1x1": {"wall_s": wall_1x1, "launches": launches_1x1}}
+    emit(out)
+    return out
+
+
 def device_time(prof, trace_path, wall_s):
     """Device activity of a profiled run, from its Chrome trace: busy seconds (the union of
     every kernel, copy and memset interval), summed seconds by kind and for the costliest
@@ -2183,7 +2454,7 @@ def main() -> int:
     phase_feeder()
 
     rng = np.random.default_rng(args.seed)
-    cases, worst = phase_kernels(rng)
+    cases, worst, shard_case = phase_kernels(rng)
     part_cases = phase_partition()
     sort_case = phase_block_sort()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
@@ -2192,6 +2463,7 @@ def main() -> int:
         phase_parity_buckets(work)
         phase_parity_slice(work, small)
         phase_parity_inputs(work, small)
+        sharded_small = phase_parity_sharded(work, small)
         main_run = phase_main(rng, work)
         multipass = phase_multipass(work, main_run["paths"], main_run["report"],
                                     main_run["batches"])
@@ -2202,6 +2474,7 @@ def main() -> int:
             cohort = phase_cohort(rng, work, main_run)
             evidence = phase_evidence_sites(work, main_run)
             inputs = phase_inputs(work, main_run, evidence)
+            sharded = phase_sharded(main_run)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2211,7 +2484,10 @@ def main() -> int:
                    == 160 and c["feed"] == "vwords" and "n_passes" not in c)
     spill_case = part_cases[0]
     launches = multipass["spill_store"]["launches"]
-    by_path = {"run_trio": main_run["launches"],
+    by_path = {"run_trio_sharded_2x4": sharded["launches"],
+               **{f"small_{name}": r["launches"] for name, r in sharded_small.items()},
+               "cli_mesh_1x1": sharded["cli_mesh_1x1"]["launches"],
+               "run_trio": main_run["launches"],
                **{name: r["launches"] for name, r in multipass.items()},
                **{name: r["launches"] for name, r in buckets.items()},
                "run_trio_npz": ckpt["run_trio_npz"]["launches"],
@@ -2222,7 +2498,7 @@ def main() -> int:
         "name": "extract_kmers", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",
         "replaces": "denovo_kmer_tpu/ops/extract_pallas.py:42",
-        "launches": launches["extract_kmers"],
+        "launches": sharded["launches"]["extract_kmers"],
         "max_abs_err": worst, "max_abs_diff": worst,
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -2233,7 +2509,10 @@ def main() -> int:
                                if c["k"] == K and c["canonical"] and c["feed"] == "lengths"
                                and "n_passes" not in c},
         "launches_by_path": {name: v["extract_kmers"] for name, v in by_path.items()},
-        "shape": "B=16384 max_read_len=160 k=31 canonical"}, {
+        "sharded_launch": {key: shard_case[key] for key in
+                           ("B", "ms", "plain_ms", "bound_ms", "bound_by", "store_floor_ms")},
+        "shape": "B=16384 max_read_len=160 k=31 canonical; launches: run_trio_sharded on a "
+                 "2x4 mesh of one card, B=2048 a launch"}, {
         "name": "radix_partition", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/radix_partition.cu",
         "replaces": "denovo_kmer_tpu/ops/partition_pallas.py:125",

@@ -27,8 +27,10 @@ gzip), FASTQ or FASTA, as local paths or ``http(s)://``, ``s3://`` and ``gs://``
 filter without an index) or ``--regions-bed`` (BAM) restricts the reads.
 ``--read-len-buckets 64,112,160`` packs and extracts each read at the smallest width that
 holds it; ``--ingest-threads N`` sets the C++ BAM feeder's decode threads; ``call
---profile-dir DIR`` writes a ``torch.profiler`` Chrome trace. ``--mesh`` (multi-device) is not
-ported yet: it exits non-zero and names ROADMAP.md.
+--profile-dir DIR`` writes a ``torch.profiler`` Chrome trace. ``--mesh RxT`` runs ``call`` (plain,
+``--passes N``, ``--passes N --spill-rows N``), ``sweep`` and ``cohort`` on the sharded engine
+over an R x T mesh: R·T cards, or with ``--device cpu`` R·T copies of the CPU; the other
+subcommands accept the flag and ignore it, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -39,9 +41,6 @@ import os
 import sys
 
 from denovo_kmer_tpu_torch.config import DEFAULT_FILTER_MASK, EngineConfig
-
-_NOT_YET = "not yet ported (ROADMAP.md)"
-
 
 def _int_maybe_hex(s: str) -> int:
     return int(s, 0)
@@ -80,7 +79,8 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
     e.add_argument("--max-read-len", type=int, default=160)
     e.add_argument("--table-capacity", type=int, default=1 << 20)
     e.add_argument("--mesh", type=_mesh_shape, default=(1, 1),
-                   help=f"mesh shape READSxTABLE (multi-device: {_NOT_YET})")
+                   help="mesh shape READSxTABLE, e.g. 4x2 (multi-device: R*T cards, or "
+                        "R*T copies of the CPU with --device cpu)")
     e.add_argument("--read-len-buckets", default=None,
                    help="comma list of ascending padded read widths (last = "
                         "--max-read-len), e.g. 64,112,160: mixed-length inputs skip "
@@ -122,13 +122,6 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="`call`: write a torch.profiler Chrome trace (CPU and CUDA "
                         "activity) of the run into this directory; the other "
                         "subcommands accept the flag and ignore it")
-
-
-def _reject_unported(args) -> None:
-    """Loud exit for flags whose paths are not ported yet: silently ignoring one would
-    leave a user believing it took effect."""
-    if tuple(getattr(args, "mesh", (1, 1))) != (1, 1):
-        raise SystemExit(f"--mesh: {_NOT_YET}")
 
 
 def _resolve_region(args):
@@ -179,6 +172,9 @@ def _accum_kwargs(args) -> dict:
     P = args.max_read_len - args.kmer_size + 1
     words = -(-2 * args.kmer_size // 32)
     per_batch = args.batch_reads * P * (4 * words + 1)
+    # staging splits over the mesh: each shard holds 1/(R*T) of a batch
+    reads_ax, table_ax = args.mesh
+    per_batch = -(-per_batch // max(reads_ax * table_ax, 1))
     n = min(max(int(mem * 0.15 / max(per_batch, 1)), 8), 128)
     print(f"accum auto: {n} batches/window "
           f"({n * per_batch / 1e9:.2f} GB staging of {mem / 1e9:.0f} GB)", file=sys.stderr)
@@ -230,23 +226,34 @@ def _reject_multipass_flags(args) -> None:
 
 
 def cmd_call(args) -> int:
+    from denovo_kmer_tpu_torch.parallel import pipeline as sharded
     from denovo_kmer_tpu_torch.pipeline import run_trio, run_trio_multipass, run_trio_spill
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
-    _reject_unported(args)
     _check_multipass_flags(args)
     cfg = _cfg_from_args(args)
+    on_mesh = cfg.mesh_shape != (1, 1)
+    if on_mesh and args.spill is not None:
+        raise SystemExit("--spill DIR is the single-chip host spill; with --mesh "
+                         "use --spill-rows N (reads-sharded device store)")
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
     trio = (args.mom, args.dad, args.child, cfg)
     region = _resolve_region(args)
     with _profiler(args):
-        if args.passes > 1 and (args.spill is not None or args.spill_rows is not None):
+        if args.passes > 1 and on_mesh and args.spill_rows is not None:
+            result = sharded.run_trio_spill_sharded(
+                *trio, args.passes, device_store_rows=args.spill_rows, metrics=metrics,
+                region=region, device=args.device)
+        elif args.passes > 1 and (args.spill is not None or args.spill_rows is not None):
             result = run_trio_spill(*trio, args.passes, spill_dir=args.spill,
                                     device_store_rows=args.spill_rows, metrics=metrics,
                                     region=region, device=args.device)
         elif args.passes > 1:
-            result = run_trio_multipass(*trio, args.passes, metrics, region=region,
-                                        device=args.device)
+            run = sharded.run_trio_multipass_sharded if on_mesh else run_trio_multipass
+            result = run(*trio, args.passes, metrics, region=region, device=args.device)
+        elif on_mesh:
+            result = sharded.run_trio_sharded(*trio, metrics, region=region,
+                                              device=args.device)
         else:
             result = run_trio(*trio, metrics, region=region, device=args.device)
 
@@ -315,10 +322,9 @@ def _evidence_after_call(args, cfg, result) -> None:
 
 def cmd_sweep(args) -> int:
     """Multi-k sweep (BASELINE.json config 4): one decode pass, per-k tables + reports."""
-    from denovo_kmer_tpu_torch.cohort import run_trio_multi_k
+    from denovo_kmer_tpu_torch.cohort import run_trio_multi_k, run_trio_multi_k_sharded
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
-    _reject_unported(args)
     cfg = _cfg_from_args(args)
     try:
         distinct = (args.output_pattern.format(k=1) != args.output_pattern.format(k=2))
@@ -332,8 +338,9 @@ def cmd_sweep(args) -> int:
     _reject_multipass_flags(args)
     ks = [int(x) for x in args.ks.split(",")]
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
-    results = run_trio_multi_k(args.mom, args.dad, args.child, cfg, ks, metrics,
-                               region=_resolve_region(args), device=args.device)
+    run = run_trio_multi_k_sharded if cfg.mesh_shape != (1, 1) else run_trio_multi_k
+    results = run(args.mom, args.dad, args.child, cfg, ks, metrics,
+                  region=_resolve_region(args), device=args.device)
     for k, res in sorted(results.items()):
         path = args.output_pattern.format(k=k)
         with open(path, "w") as f:
@@ -402,7 +409,6 @@ def cmd_cohort(args) -> int:
     from denovo_kmer_tpu_torch.utils.checkpoint import save_table
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
-    _reject_unported(args)
     cfg = _cfg_from_args(args)
     if (args.manifest is None) == (args.ped is None):
         raise SystemExit("cohort needs exactly one of: a manifest, or --ped")
@@ -422,6 +428,8 @@ def cmd_cohort(args) -> int:
     _reject_multipass_flags(args)
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
     os.makedirs(args.outdir, exist_ok=True)
+    if cfg.mesh_shape != (1, 1):
+        return _cohort_on_mesh(args, cfg, trios, metrics)
     results, superset = run_cohort(trios, cfg, metrics,
                                    build_parental_superset=not args.no_superset,
                                    region=_resolve_region(args), device=args.device)
@@ -439,13 +447,34 @@ def cmd_cohort(args) -> int:
     return 0
 
 
+def _cohort_on_mesh(args, cfg, trios, metrics) -> int:
+    """`cohort --mesh`: one sharded engine streams all 3N samples; reports from the
+    candidate tuples (the same bytes), the superset saved in engine layout by the engine."""
+    from denovo_kmer_tpu_torch.cohort import run_cohort_sharded
+    from denovo_kmer_tpu_torch.oracle.scalar import format_report
+
+    sup_path = (os.path.join(args.outdir, "parental_superset.npz")
+                if not args.no_superset else None)
+    results, _superset = run_cohort_sharded(
+        trios, cfg, metrics, build_parental_superset=not args.no_superset,
+        region=_resolve_region(args), superset_out=sup_path, device=args.device)
+    for name, cands in results.items():
+        path = os.path.join(args.outdir, f"{name}.candidates.tsv")
+        with open(path, "w") as f:
+            f.write(format_report(cands, cfg.k))
+        print(f"{name}: {len(cands)} candidates -> {path}", file=sys.stderr)
+    if sup_path is not None:
+        print(f"parental superset -> {sup_path}", file=sys.stderr)
+    print(metrics.summary(), file=sys.stderr)
+    return 0
+
+
 def cmd_evidence(args) -> int:
     """The child reads supporting candidate k-mers (the reviewable evidence subset: IGV,
     local reassembly), through the extraction kernel and the candidate probe
     (``pipeline.run_evidence``)."""
     from denovo_kmer_tpu_torch.pipeline import run_evidence
 
-    _reject_unported(args)
     cfg = _cfg_from_args(args)
     res = run_evidence(args.child, args.candidates, cfg, args.output,
                        region=_resolve_region(args), per_candidate_out=args.per_candidate,
@@ -459,7 +488,6 @@ def cmd_sites(args) -> int:
     """Candidate-site reporter over an existing candidate TSV (``sites.group_sites``)."""
     from denovo_kmer_tpu_torch.sites import group_sites, write_sites_tsv
 
-    _reject_unported(args)
     cfg = _cfg_from_args(args)
     sites = group_sites(args.child, args.candidates, cfg, region=_resolve_region(args),
                         device=args.device)
@@ -473,7 +501,6 @@ def cmd_count(args) -> int:
     from denovo_kmer_tpu_torch.utils.checkpoint import save_table
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
-    _reject_unported(args)
     cfg = _cfg_from_args(args)
     metrics = Metrics(json_stream=sys.stderr if cfg.json_metrics else None)
     if (args.region or getattr(args, "regions_bed", None)) and args.resume:
@@ -509,7 +536,6 @@ def cmd_probe(args) -> int:
     from denovo_kmer_tpu_torch.pipeline import resolve_device
     from denovo_kmer_tpu_torch.utils.checkpoint import load_table
 
-    _reject_unported(args)
     cfg = _cfg_from_args(args)
     dev = resolve_device(args.device)
     table = load_table(args.table, cfg, device=dev)

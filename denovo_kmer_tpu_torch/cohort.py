@@ -9,8 +9,8 @@ Port of the single-device half of ``denovo_kmer_tpu/cohort.py``.
   union of every parent's k-mers). Per-trio calls use that trio's own parents, so each
   trio's result equals its standalone ``run_trio``.
 
-The sharded twins (``run_trio_multi_k_sharded``, ``run_cohort_sharded``) are not ported yet
-(ROADMAP.md).
+The sharded twins (``run_trio_multi_k_sharded``, ``run_cohort_sharded``) run the same over a
+device mesh through ``parallel/sharded_table.ShardedKmerEngine``.
 """
 
 from __future__ import annotations
@@ -136,4 +136,131 @@ def run_cohort(
         m.count("trios", 1)
     if superset is not None:
         m.count("superset_unique_kmers", int(superset.n))
+    return results, superset
+
+
+def run_trio_multi_k_sharded(
+    mom_path: str,
+    dad_path: str,
+    child_path: str,
+    base_cfg: EngineConfig,
+    ks: Sequence[int],
+    metrics: Optional[Metrics] = None,
+    mesh=None,
+    region: Optional[str] = None,
+    max_route_retries: int = 3,
+    device=None,
+) -> Dict[int, TrioResult]:
+    """The multi-k sweep over a device mesh: one decode and one placement a batch feeds a
+    ``ShardedKmerEngine`` a k, all on ONE mesh, each hash-sharding its own tables; every k
+    finishes through the fused finalize + call (the compacting fallback at even k). Route
+    overflow reruns the whole sweep with a doubled capacity factor, as ``run_trio_sharded``
+    does. ``device=None`` runs on the card."""
+    from denovo_kmer_tpu_torch.parallel.pipeline import with_route_retry
+
+    def run(cfg, m):
+        return _run_trio_multi_k_sharded_once(mom_path, dad_path, child_path, cfg, ks, m,
+                                              mesh, region, device)
+
+    return with_route_retry(run, base_cfg, metrics, max_route_retries)
+
+
+def _run_trio_multi_k_sharded_once(mom_path, dad_path, child_path, base_cfg, ks, m, mesh,
+                                   region, device) -> Dict[int, TrioResult]:
+    from denovo_kmer_tpu_torch.io.prefetch import prefetch_placed
+    from denovo_kmer_tpu_torch.parallel.mesh import make_mesh
+    from denovo_kmer_tpu_torch.oracle.scalar import format_report
+    from denovo_kmer_tpu_torch.parallel.sharded_table import ShardedKmerEngine
+    from denovo_kmer_tpu_torch.pipeline import _report_feed_stats
+
+    mesh = mesh if mesh is not None else make_mesh(base_cfg.mesh_shape, device=device)
+    cfgs = {k: dataclasses.replace(base_cfg, k=k) for k in ks}
+    engines = {k: ShardedKmerEngine(cfgs[k], mesh) for k in ks}
+    e0 = engines[ks[0]]
+
+    def stream_all(path, states, ingest_global):
+        # ONE decode, placement and split a batch; every k's engine ingests the same blocks
+        feed_stats: dict = {}
+        for packed in prefetch_placed(packed_batches(path, base_cfg, region), e0.feed_device,
+                                      ship_lengths=True, stats=feed_stats):
+            m.count("reads_ingested", packed.n_reads)
+            blocks = e0.put_batch(packed)
+            for k in ks:
+                with m.timer("extract_probe"):
+                    states[k] = ingest_global[k](states[k], blocks)
+                m.count("kmers_extracted", packed.n_reads * cfgs[k].windows_per_read)
+        _report_feed_stats(m, feed_stats)
+
+    tables: Dict[str, Dict[int, list]] = {}
+    for name, path in (("mom", mom_path), ("dad", dad_path)):
+        states = {k: engines[k].new_build() for k in ks}
+        stream_all(path, states, {k: engines[k].ingest_global for k in ks})
+        tables[name] = {k: engines[k].finalize(states[k]) for k in ks}
+
+    states = {k: engines[k].new_score_build(tables["mom"][k], tables["dad"][k]) for k in ks}
+    stream_all(child_path, states, {k: engines[k].ingest_score_global for k in ks})
+
+    out: Dict[int, TrioResult] = {}
+    for k in ks:
+        cands, child_uniques = engines[k].finalize_call_score(states[k])
+        out[k] = TrioResult(
+            candidates=list(cands), report=format_report(cands, k), metrics=m,
+            tables_n={"mom": engines[k].total_unique(tables["mom"][k]),
+                      "dad": engines[k].total_unique(tables["dad"][k]),
+                      "child": child_uniques})
+    return out
+
+
+def run_cohort_sharded(
+    trios: Sequence[TrioPaths],
+    cfg: EngineConfig,
+    metrics: Optional[Metrics] = None,
+    mesh=None,
+    build_parental_superset: bool = True,
+    region: Optional[str] = None,
+    superset_out: Optional[str] = None,
+    device=None,
+):
+    """Cohort mode on a device mesh: ONE ShardedKmerEngine streams all 3N samples; the
+    parental superset folds shard-locally (one owner function everywhere) and, with
+    ``superset_out``, is saved in engine layout (``ShardedKmerEngine.save_table``). Each
+    trio's call uses its own parents, so it equals that trio run alone.
+
+    Returns ({trio_name: [(kmer_value, child, mom, dad), ...]}, superset | None).
+    ``device=None`` runs on the card."""
+    from denovo_kmer_tpu_torch.parallel.mesh import make_mesh
+    from denovo_kmer_tpu_torch.parallel.pipeline import (
+        ingest_score_state,
+        load_or_build_parent_sharded,
+    )
+    from denovo_kmer_tpu_torch.parallel.sharded_table import ShardedKmerEngine
+
+    m = metrics or Metrics()
+    mesh = mesh if mesh is not None else make_mesh(cfg.mesh_shape, device=device)
+    engine = ShardedKmerEngine(cfg, mesh)
+    results = {}
+    superset = engine.empty_table() if build_parental_superset else None
+    for trio in trios:
+        mom = load_or_build_parent_sharded(trio.mom, cfg, engine, m, region=region)
+        dad = load_or_build_parent_sharded(trio.dad, cfg, engine, m, region=region)
+        if superset is not None:
+            # a merge drops overflow rows and a later merge would recompute n from the
+            # survivors: check after every fold
+            for parent_tab, pname in ((mom, "mom"), (dad, "dad")):
+                superset = engine.merge_sharded_tables(superset, parent_tab)
+                n_max = engine._max_n(superset)
+                if n_max > engine.shard_capacity:
+                    raise RuntimeError(
+                        f"parental superset shard overflow at trio {trio.name} "
+                        f"({pname}): {n_max} > {engine.shard_capacity}; "
+                        f"raise --table-capacity"
+                    )
+        state = ingest_score_state(trio.child, cfg, engine, mom, dad, m, region=region)
+        cands, _n_child_unique = engine.finalize_call_score(state)
+        results[trio.name] = cands
+        m.count("trios", 1)
+    if superset is not None:
+        m.count("superset_unique_kmers", engine.total_unique(superset))
+        if superset_out is not None:
+            engine.save_table(superset_out, superset, source="cohort-superset")
     return results, superset

@@ -42,6 +42,42 @@ def fused_supported(k: int) -> bool:
     return (2 * k) % 32 != 0
 
 
+def call_rows(words, cnt: torch.Tensor, pc: torch.Tensor, tau_parent: int,
+              min_child_count: int):
+    """The trio call on an unsorted stream of rows: key ``words`` (W int64 columns, invalid
+    rows already set to the padding key), child-count weights ``cnt`` and parental packs
+    ``pc`` (0 on invalid rows). One key sort, group heads, and each group's sums of both
+    columns, wrapped to 32 bits as JAX's uint32 adds wrap. Returns device tensors
+    (candidate keys (n, W), child, momc, dadc (n,)) ascending by key, and the counts of
+    distinct real keys and of those with child count >= 1 (0-dim)."""
+    dev = cnt.device
+    N = cnt.shape[0]
+    keys = sort_keys(words)
+    perm = lex_argsort(keys)
+    head = group_heads([k[perm] for k in keys])
+    del keys
+    heads = torch.nonzero(head).squeeze(1)  # host sync: the call's one fetch follows
+    ends = torch.cat([heads[1:], torch.tensor([N], device=dev)])
+
+    def group_sums(col):
+        csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          torch.cumsum(col[perm], 0)])
+        return (csum[ends] - csum[heads]) & _M32
+
+    child = group_sums(cnt)
+    pcsum = group_sums(pc)
+    momc = pcsum & _SAT
+    dadc = pcsum >> 16
+
+    src = perm[heads]  # input row of each group's head
+    real = words[0][src] != PAD
+    has_child = real & (child >= 1)
+    flags = has_child & (child >= min_child_count) & (momc <= tau_parent) & (dadc <= tau_parent)
+    sel = src[flags]
+    cand_keys = torch.stack([w[sel] for w in words], dim=1)
+    return cand_keys, child[flags], momc[flags], dadc[flags], real.sum(), has_child.sum()
+
+
 def fused_call_full(
     acc: KmerAccumulator,
     tab: ScoreTable,
@@ -72,39 +108,11 @@ def fused_call_full(
     pc = torch.where(
         valid, torch.cat([tab.pcounts, torch.zeros((S,), dtype=torch.int64, device=dev)]), 0
     )
-
-    keys = sort_keys(words)
-    perm = lex_argsort(keys)
-    head = group_heads([k[perm] for k in keys])
-    del keys
-    heads = torch.nonzero(head).squeeze(1)  # host sync: the call's one fetch follows
-    ends = torch.cat([heads[1:], torch.tensor([head.shape[0]], device=dev)])
-
-    def group_sums(col):
-        csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                          torch.cumsum(col[perm], 0)])
-        return (csum[ends] - csum[heads]) & _M32
-
-    child = group_sums(cnt)
-    pcsum = group_sums(pc)
-    momc = pcsum & _SAT
-    dadc = pcsum >> 16
-
-    src = perm[heads]  # input row of each group's head
-    real = words[0][src] != PAD
-    has_child = real & (child >= 1)
-    flags = has_child & (child >= min_child_count) & (momc <= tau_parent) & (dadc <= tau_parent)
-    sel = src[flags]
-    cand_keys = torch.stack([w[sel] for w in words], dim=1)
+    cand_keys, child, momc, dadc, n_real, n_child = call_rows(
+        words, cnt, pc, tau_parent, min_child_count)
 
     def host32(t):
         return t.cpu().numpy().astype(np.uint32)
 
-    return (
-        host32(cand_keys),
-        host32(child[flags]),
-        host32(momc[flags]),
-        host32(dadc[flags]),
-        int(real.sum()),
-        int(has_child.sum()),
-    )
+    return (host32(cand_keys), host32(child), host32(momc), host32(dadc), int(n_real),
+            int(n_child))

@@ -23,6 +23,7 @@ from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
     _aggregate_multi,
     _sticky_overflow_n,
+    empty_table,
     u32,
     valid_rows,
 )
@@ -61,6 +62,11 @@ def score_table_to_numpy(tab: ScoreTable) -> Tuple[np.ndarray, np.ndarray, np.nd
         return t.cpu().numpy().astype(np.uint32)
 
     return host32(tab.keys), host32(tab.counts), host32(tab.pcounts), int(tab.n)
+
+
+def empty_score_table(capacity: int, words: int, device="cpu") -> ScoreTable:
+    t = empty_table(capacity, words, device)
+    return ScoreTable(keys=t.keys, counts=t.counts, pcounts=t.counts.clone(), n=t.n)
 
 
 def seed_score_table(mom: KmerTable, dad: KmerTable, capacity: int) -> ScoreTable:

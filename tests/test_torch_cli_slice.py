@@ -171,15 +171,83 @@ def test_call_evidence_and_sites_out_match_jax(trio_dir, tmp_path, capsys, outpu
     ["evidence", "--child", "c.bam", "--candidates", "c.tsv", "-o", "ev.bam"],
     ["sites", "c.bam", "c.tsv", "-o", "s.tsv"],
 ])
-def test_slice_commands_reject_unported_flags(trio_dir, argv):
-    """--mesh (the sharded twins) exits non-zero, naming ROADMAP.md, also beside a live
-    --region."""
+def test_slice_commands_reject_unported_flags(trio_dir, candidates_tsv, tmp_path, argv):
+    """No flag is left unported: --mesh is live on every slice command, also beside a live
+    --region. sweep and cohort run their sharded twins, evidence and sites accept the flag
+    and ignore it (as the JAX CLI does); each writes the reports it writes without --mesh
+    (the cohort's superset is saved in engine layout on a mesh)."""
+    man = tmp_path / "man.tsv"
+    man.write_text(f"t1\t{trio_dir/'mom.bam'}\t{trio_dir/'dad.bam'}\t{trio_dir/'child.bam'}\n")
+    inputs = {"c.bam": str(trio_dir / "child.bam"), "c.tsv": str(candidates_tsv),
+              "man.tsv": str(man)}
     if argv[0] == "sweep":
-        argv = [*argv, *_trio_args(trio_dir)]
-    for flag in (["--mesh", "2x2"], ["--mesh", "1x2", "--region", "chr20"]):
-        with pytest.raises(SystemExit) as e:
-            cli.main([*argv, *ENGINE_ARGS, "--device", "cpu", *flag])
-        assert "not yet ported (ROADMAP.md)" in str(e.value.code)
+        argv = [*argv, *_trio_args(trio_dir), "-o", "c.k{k}.tsv"]
+    for i, flag in enumerate((["--mesh", "2x2"], ["--mesh", "1x2", "--region", "chr20"])):
+        outs = {}
+        for on_mesh in (True, False):
+            d = tmp_path / f"{i}{on_mesh}"
+            d.mkdir()
+            args = [inputs.get(a) or (str(d / a) if a in ("coh", "ev.bam", "s.tsv",
+                                                          "c.k{k}.tsv") else a)
+                    for a in argv]
+            assert cli.main([*args, *ENGINE_ARGS, "--device", "cpu",
+                             *(flag if on_mesh else flag[2:])]) == 0
+            outs[on_mesh] = {str(p.relative_to(d)): p.read_bytes() for p in d.rglob("*")
+                             if p.is_file() and p.suffix != ".npz"}
+        assert outs[True] == outs[False] and outs[True]
+
+
+@pytest.mark.parametrize("how", ["call", "passes", "spill_rows", "sweep", "cohort"])
+def test_mesh_cli_matches_jax(trio_dir, tmp_path, how):
+    """--mesh 2x4 through both CLIs (JAX on its 8 host devices, the port on eight copies of
+    the CPU): `call` plain, with --passes 2 and with --passes 3 --spill-rows; `sweep`;
+    `cohort` of two trios with its superset in engine layout (arrays and meta equal)."""
+    man = tmp_path / "man.tsv"
+    b = trio_dir / "b"
+    man.write_text(f"t1\t{trio_dir/'mom.bam'}\t{trio_dir/'dad.bam'}\t{trio_dir/'child.bam'}\n"
+                   f"t2\t{b/'mom.bam'}\t{b/'dad.bam'}\t{b/'child.bam'}\n")
+
+    def argv(o):
+        if how == "sweep":
+            return ["sweep", *_trio_args(trio_dir), "--ks", "15,21,32", "-o",
+                    str(o / "c.k{k}.tsv"), "--mesh", "2x4"]
+        if how == "cohort":
+            return ["cohort", str(man), "-o", str(o), "--mesh", "2x4"]
+        extra = {"call": [], "passes": ["--passes", "2"],
+                 "spill_rows": ["--passes", "3", "--spill-rows", "4096"]}[how]
+        return ["call", *_trio_args(trio_dir), "-o", str(o / "c.tsv"), *extra,
+                "--mesh", "2x4"]
+
+    dirs = _run_both(tmp_path, argv)
+    names = sorted(p.name for p in dirs["jax"].iterdir())
+    assert names == sorted(p.name for p in dirs["port"].iterdir())
+    assert names
+    for name in names:
+        got, want = dirs["port"] / name, dirs["jax"] / name
+        if name.endswith(".npz"):
+            with np.load(got) as g, np.load(want) as w:
+                assert sorted(g.files) == sorted(w.files)
+                for f in w.files:
+                    np.testing.assert_array_equal(g[f], w[f], err_msg=f)
+        else:
+            assert got.read_bytes() == want.read_bytes(), name
+            assert got.read_text().count("\n") > 1, name
+
+
+def test_mesh_needs_a_card_per_shard(trio_dir, tmp_path, monkeypatch):
+    """`call --mesh 2x2` on a one-card host fails with the JAX package's message (here the
+    card list is one CUDA device; JAX's --mesh 4x4 on its 8 host devices says the same)."""
+    from denovo_kmer_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "default_devices", lambda device=None: [torch.device("cuda", 0)])
+    with pytest.raises(ValueError) as e:
+        cli.main(["call", *_trio_args(trio_dir), "-o", str(tmp_path / "c.tsv"), *ENGINE_ARGS,
+                  "--mesh", "2x2"])
+    assert str(e.value) == "mesh (2, 2) needs 4 devices, have 1"
+    with pytest.raises(ValueError) as ej:
+        jax_cli.main(["call", *_trio_args(trio_dir), "-o", str(tmp_path / "j.tsv"),
+                      *ENGINE_ARGS, "--mesh", "4x4"])
+    assert str(ej.value) == "mesh (4, 4) needs 16 devices, have 8"
 
 
 def test_sweep_and_cohort_reject_passes(trio_dir, tmp_path):

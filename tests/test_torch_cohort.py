@@ -200,3 +200,49 @@ def test_sweep_and_cohort_on_cuda_equal_cpu(trios):
     _same_results(gpu, cpu)
     assert [a.tolist() for a in table_to_numpy(gpu_sup)[:2]] == [
         a.tolist() for a in table_to_numpy(cpu_sup)[:2]]
+
+
+# ---- the sharded twins: run_trio_multi_k_sharded and run_cohort_sharded on a mesh ----
+
+@pytest.mark.parametrize("ks", [(15, 32, 33)])
+def test_sharded_sweep_matches_jax(trios, ks):
+    """JAX's run_trio_multi_k_sharded on a (2,4) mesh of host devices and the port's on
+    eight copies of the CPU: every k's report, candidates and tables_n; equal to the port's
+    single-device sweep."""
+    from denovo_kmer_tpu.cohort import run_trio_multi_k_sharded as jax_sweep_sharded
+
+    tp = trios[0]
+    cfg = dict(SWEEP_CFG, mesh_shape=(2, 4))
+    want = jax_sweep_sharded(tp.mom, tp.dad, tp.child, JaxConfig(**cfg), list(ks))
+    got = cohort.run_trio_multi_k_sharded(tp.mom, tp.dad, tp.child, EngineConfig(**cfg), ks,
+                                          device="cpu")
+    _same_results(got, want)
+    single = run_trio_multi_k(tp.mom, tp.dad, tp.child, EngineConfig(**SWEEP_CFG), ks,
+                              device="cpu")
+    _same_results(got, single)
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
+def test_sharded_cohort_matches_jax(trios, tmp_path, shape):
+    """Each trio's candidate tuples, and the parental superset saved in engine layout by
+    both engines: the same arrays and meta; the tuples are each trio's run_trio."""
+    from denovo_kmer_tpu.cohort import run_cohort_sharded as jax_cohort_sharded
+
+    cfg = dict(COHORT_CFG, mesh_shape=shape)
+    jp, pp = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    want, _ = jax_cohort_sharded(_jax_trios(trios), JaxConfig(**cfg), superset_out=jp)
+    got, sup = cohort.run_cohort_sharded(trios, EngineConfig(**cfg), superset_out=pp,
+                                         device="cpu")
+    assert got == want
+    with np.load(jp) as a, np.load(pp) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for name in a.files:
+            assert a[name].dtype == b[name].dtype, name
+            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+    single, single_sup = run_cohort(trios, EngineConfig(**COHORT_CFG), device="cpu")
+    assert {k: v.candidates for k, v in single.items()} == got
+    n_sup = sum(int(t.n) for t in sup[0])
+    assert n_sup == int(single_sup.n)
+    _, none = cohort.run_cohort_sharded(trios[:1], EngineConfig(**cfg),
+                                        build_parental_superset=False, device="cpu")
+    assert none is None

@@ -174,21 +174,40 @@ def test_cli_call_cpu_matches_jax_cli(trio_dir, tmp_path):
     ["--passes", "2", "--mesh", "2x2"], ["--mesh", "2x1"],
     ["--spill-rows", "1000", "--passes", "2", "--mesh", "1x2"],
     ["--spill-rows", "1000", "--passes", "2", "--mesh", "2x1"],
-    # regions, length buckets, feeder threads, profiling, evidence and sites are live, but
-    # not beside an unported flag
+    # regions, length buckets, feeder threads, profiling, evidence and sites beside --mesh
     ["--region", "chr20", "--mesh", "2x2"],
-    ["--regions-bed", "r.bed", "--mesh", "1x2"], ["--read-len-buckets", "32,64", "--mesh", "2x2"],
+    ["--regions-bed", "r.bed", "--mesh", "1x2"],
+    ["--read-len-buckets", "32,64", "--mesh", "2x2"],
     ["--ingest-threads", "4", "--region", "chr20", "--mesh", "2x1"],
     ["--profile-dir", "prof", "--mesh", "2x2"],
     ["--evidence-out", "ev.bam", "--region", "chr20", "--mesh", "1x2"],
     ["--sites-out", "s.tsv", "--mesh", "2x2"],
 ])
-def test_cli_rejects_unported_flags(trio_dir, flag, capsys):
+def test_cli_rejects_unported_flags(trio_dir, flag, tmp_path, monkeypatch):
+    """No `call` flag is left unported: --mesh runs the sharded pipelines beside every other
+    flag, and each run writes what the same call without --mesh writes (the report and the
+    evidence and sites files; a profile directory gets a trace either way)."""
     _, _, paths = trio_dir
-    with pytest.raises(SystemExit) as e:
-        cli.main(["call", "--mom", paths["mom"], "--dad", paths["dad"], "--child",
-                  paths["child"], "--device", "cpu", *flag])
-    assert "not yet ported (ROADMAP.md)" in str(e.value.code)
+    monkeypatch.setenv("DENOVO_KMER_INGEST_THREADS", "4")  # --ingest-threads sets it
+    (tmp_path / "r.bed").write_text("chr20\t100\t1500\n")
+    sizing = ["-k", "21", "--max-read-len", "64", "--batch-reads", "64",
+              "--table-capacity", str(1 << 14)]
+    outs = {}
+    for on_mesh in (True, False):
+        d = tmp_path / str(on_mesh)
+        d.mkdir()
+        args = [str(tmp_path / a) if a == "r.bed" else
+                str(d / a) if a in ("prof", "ev.bam", "s.tsv") else a
+                for a in (flag if on_mesh else flag[:-2])]
+        assert cli.main(["call", "--mom", paths["mom"], "--dad", paths["dad"], "--child",
+                         paths["child"], "--device", "cpu", "-o", str(d / "c.tsv"),
+                         *sizing, *args]) == 0
+        outs[on_mesh] = {str(p.relative_to(d)): p.read_bytes() for p in d.rglob("*")
+                         if p.is_file() and "prof" not in p.parts}
+        if "--profile-dir" in flag:
+            assert any(p.name.endswith(".pt.trace.json") for p in (d / "prof").iterdir())
+    assert outs[True] == outs[False]
+    assert outs[True]["c.tsv"].count(b"\n") > 1
 
 
 def test_synth_trio_cli_writes_what_the_jax_cli_writes(tmp_path):

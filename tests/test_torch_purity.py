@@ -53,6 +53,8 @@ def test_import_loads_no_jax():
         "import denovo_kmer_tpu_torch.io.bai, denovo_kmer_tpu_torch.io.remote\n"
         "import denovo_kmer_tpu_torch.io.objstore, denovo_kmer_tpu_torch.io.tok3\n"
         "import denovo_kmer_tpu_torch.io.fqz, denovo_kmer_tpu_torch.io.fasta\n"
+        "import denovo_kmer_tpu_torch.ops.join, denovo_kmer_tpu_torch.parallel.probe\n"
+        "import denovo_kmer_tpu_torch.parallel.pipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

@@ -363,8 +363,8 @@ def test_cli_module_entry_runs_the_spill(trio_dir, jax_cli_tsv, tmp_path):
     (["--spill-rows", "64"], "require --passes"),
     (["--passes", "2", "--spill", "DIR", "--spill-rows", "64"], "exclusive"),
     (["--passes", "2", "--spill-rows", "0"], "must be >= 1"),
-    (["--passes", "2", "--mesh", "2x1"], "not yet ported"),
-    (["--passes", "2", "--spill-rows", "64", "--mesh", "2x1"], "not yet ported"),
+    (["--passes", "2", "--spill", "DIR", "--mesh", "2x1"], "single-chip host spill"),
+    (["--passes", "2", "--spill-rows", "0", "--mesh", "2x1"], "must be >= 1"),
 ])
 def test_cli_rejects_bad_multipass_flags(trio_dir, tmp_path, flags, match):
     flags = [str(tmp_path / "spill") if a == "DIR" else a for a in flags]
