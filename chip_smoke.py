@@ -5,8 +5,10 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA card (sm_90a, nvcc under
 /usr/local/cuda or $CUDA_HOME) and g++ with zlib. It starts six worker processes (phase
-8's CRAM and sorted-BAM writers) and an HTTP server thread on 127.0.0.1, and stops them all. It exits non-zero, printing no result,
-without a card or without the package beside it. Phases, each printed as one JSON line:
+8's CRAM and sorted-BAM writers), an HTTP server thread on 127.0.0.1 and three pairs of
+spawned ranks (phase 10, a gloo process group on 127.0.0.1), and stops them all. It exits
+non-zero, printing no result, without a card or without the package beside it. Phases,
+each printed as one JSON line:
 
 1. build    — compile every CUDA kernel from denovo_kmer_tpu_torch/csrc, one nvcc a source,
               all started together; then the port's native library (the C++ BAM feeder
@@ -128,9 +130,32 @@ without a card or without the package beside it. Phases, each printed as one JSO
               Phase 2 also times the extraction at the 2x4 mesh's launch (2,048 reads, the
               fill advancing through one shard's staging window).
 
+10. multihost, table_tools — parallel/multihost.run_trio_multihost in 2 spawned processes,
+              a gloo process group named explicitly (NCCL refuses two ranks on one GPU),
+              each rank on four copies of cuda:0, at phase 4's BAMs and config: (a) a 2x4
+              mesh with the stripe feed (the reads axis spans the ranks, the table axis
+              stays inside each), rank 0 under a torch.profiler trace; (b) the range feed;
+              (c) a (1,8) mesh whose route all_to_all crosses the ranks: it warns, and
+              require_ici_local=True refuses it; (d) 2 re-decode passes, and 2 passes
+              through a per-shard device store of 3,000,000 rows a pass (phase 5's 48,000,000
+              store rows over 2 passes and 8 shards); (e) rank 1 killed at its 4th child
+              batch with a checkpoint directory: rank 1 exits 17, the survivor non-zero
+              within the group's 60 s timeout, and a relaunch loads both parents' npz
+              checkpoints and builds only the child. Every report on every rank equals
+              phase 4's; each rank launches the extraction 16 batches x 3 samples x 4 local
+              shards a trio (twice that for the 2 re-decode passes, the child's 64 after the
+              restart); each rank's wall, feed wait, route/fold/finalize/call seconds and
+              peak device bytes. Every launch runs under one deadline that kills every rank
+              when it passes; a rank's failure fails the phase. Then `merge` of phase 6's
+              two `count` checkpoints on the card, `stats`, `histo` and `dump` of the merged
+              table (each equal to the numpy union of the two tables), and `doctor --mesh
+              1x1 --probe-feed` on phase 4's child BAM. Phase 4 also prints the card's k-mer
+              demand (windows / device-busy seconds), the figure behind the CLI's
+              `doctor --probe-feed` default.
+
 BAMs store reverse-strand reads in reference orientation at the position of their first
 stored base, as an aligner does; canonical counting does not see the strand. Each path of
-phases 4 to 9 runs with every kernel's launch count set to 0 just before it and read just
+phases 4 to 10 runs with every kernel's launch count set to 0 just before it and read just
 after; the counts come from those runs alone (the block sort is a probe that no path
 launches). Then a ``kernels`` line (one entry per kernel), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -138,11 +163,13 @@ power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``
 
 import argparse
 import contextlib
+import concurrent.futures
 import dataclasses
 import functools
 import http.server
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -163,7 +190,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT_RESULTS_PER_CLOCK_SM = 64
 
 
+T0 = time.perf_counter()  # the script's start: each phase line says when it ended
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -987,6 +1019,16 @@ def reference_counts(codes, k=K):
     return rows[at], np.diff(np.append(at, rows.shape[0])), int(valid.sum())
 
 
+def references(jobs, workers=4):
+    """``reference_counts`` of every ``{key: (codes, k)}`` of ``jobs``, one spawn worker a job
+    on ``workers`` processes (each builds and sorts every window of its rows)."""
+    with concurrent.futures.ProcessPoolExecutor(
+            min(workers, len(jobs)), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {key: pool.submit(reference_counts, codes, k)
+                   for key, (codes, k) in jobs.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
 def _rows_in(a, b):
     """Which rows of ``a`` are rows of ``b`` (each (m, 2), rows unique within each)."""
     both = np.concatenate([a, b])
@@ -1102,7 +1144,7 @@ def phase_main(rng, work):
 
     # checks against the host reference: parent tables, candidates, planted SNVs
     t5 = time.perf_counter()
-    ref = {name: reference_counts(codes) for name, (_, _, codes) in samples.items()}
+    ref = references({name: (codes, K) for name, (_, _, codes) in samples.items()})
     for name in ("mom", "dad"):
         table = build_sample_table(paths[name], cfg, device="cuda")
         n = check_table(table, ref[name][0], ref[name][1], ref[name][2],
@@ -1155,6 +1197,10 @@ def phase_main(rng, work):
           "planted_snvs": N_SNVS, "snvs_recovered": N_SNVS - len(missed),
           "batches": batches, "launches": launches, "peak_device_bytes": peak,
           "device": device, "check_s": t6 - t5,
+          # the card's k-mer demand: the reads' k-mer windows / device-busy seconds, as
+          # `doctor --probe-feed` counts supply (cli._CHIP_DEMAND_DEFAULT)
+          "device_demand_kmers_per_s": (3 * N_READS * (READ_LEN - K + 1)
+                                        / device["busy_s"] if device else None),
           "python_feeder": {**stages(m_py, t8 - t7), "launches": launches_py,
                             "native_feeder_batches": native_batches_py}})
     return dict(paths=paths, report=res.report, batches=batches, samples=samples, ref=ref,
@@ -1513,9 +1559,11 @@ def phase_sweep(main):
     if sweep[K].report != main["report"]:
         raise AssertionError("the sweep's k=31 report differs from phase 4's")
     t0 = time.perf_counter()
+    refs = references({(k, name): (codes, k) for k in SWEEP_KS if k != K
+                       for name, (_, _, codes) in main["samples"].items()})
     for k in SWEEP_KS:
-        ref = main["ref"] if k == K else {
-            name: reference_counts(codes, k) for name, (_, _, codes) in main["samples"].items()}
+        ref = main["ref"] if k == K else {name: refs.pop((k, name))
+                                          for name in main["samples"]}
         if sweep[k].candidates != reference_candidates(ref, dataclasses.replace(cfg, k=k)):
             raise AssertionError(f"the sweep at k={k}: candidates differ from the numpy "
                                  "reference")
@@ -1576,7 +1624,7 @@ def phase_cohort(rng, work, main):
     data_s = time.perf_counter() - t0
     res_b, wall_b, _ = run_counted(
         lambda: run_trio(paths_b["mom"], paths_b["dad"], paths_b["child"], cfg, device="cuda"))
-    ref_b = {name: reference_counts(codes) for name, (_, _, codes) in samples_b.items()}
+    ref_b = references({name: (codes, K) for name, (_, _, codes) in samples_b.items()})
     if res_b.candidates != reference_candidates(ref_b, cfg):
         raise AssertionError("trio B: candidates differ from the numpy reference")
     # a planted SNV under no candidate is reported with the reading that explains it: the
@@ -1838,9 +1886,7 @@ def tsv_candidates(path):
 def phase_inputs(work, main, evidence7):
     """CRAM, region, SAM, remote and --profile-dir inputs at phase 4's width, each held to
     phase 4's report, phase 7's evidence or the numpy reference over the reads it reads."""
-    import concurrent.futures
     import glob
-    import multiprocessing
 
     from denovo_kmer_tpu_torch import pipeline, sites
     from denovo_kmer_tpu_torch.config import EngineConfig
@@ -1939,7 +1985,7 @@ def phase_inputs(work, main, evidence7):
     # ---- regions: the numpy reference over the reads each region reads ----
     def region_reference(intervals):
         masks = {s: overlapping(samples[s][0], intervals) for s in names}
-        ref = {s: reference_counts(samples[s][2][masks[s]]) for s in names}
+        ref = references({s: (samples[s][2][masks[s]], K) for s in names})
         return (reference_candidates(ref, cfg), {s: len(ref[s][0]) for s in names},
                 sum(-(-int(m_.sum()) // B) for m_ in masks.values()),
                 {s: int(m_.sum()) for s, m_ in masks.items()})
@@ -2284,20 +2330,12 @@ def phase_parity_sharded(work, paths):
     return out
 
 
-def phase_sharded(main):
-    """run_trio_sharded at phase 4's width on a 2x4 mesh of the one card: phase 4's report,
-    48 batches x 8 shards extraction launches, under a torch.profiler trace; the route,
-    fold, finalize and call seconds (each synchronized); then through the CLI `call --mesh
-    2x2` (one card a shard: refused with the JAX package's message) and `call --mesh 1x1`
-    (phase 4's report)."""
-    from denovo_kmer_tpu_torch.config import EngineConfig
+@contextlib.contextmanager
+def timed_stages(stage_s):
+    """Add the seconds of the sharded engine's route, fold, finalize and call to
+    ``stage_s`` (each call synchronized with the card), for the duration of the block."""
     from denovo_kmer_tpu_torch.parallel import sharded_table
-    from denovo_kmer_tpu_torch.parallel.pipeline import run_trio_sharded
-    from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
-    cfg = EngineConfig(**MAIN_CFG, mesh_shape=MESH)
-    paths = main["paths"]
-    stage_s = {}
     engine = sharded_table.ShardedKmerEngine
     patched = [(engine, "_route_window", "route"), (engine, "_fold_window", "fold"),
                (engine, "_finalize_tables", "finalize"), (sharded_table, "call_rows", "call")]
@@ -2313,12 +2351,32 @@ def phase_sharded(main):
             return res
         return wrapped
 
-    m = Metrics()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for (obj, attr, stage), fn in zip(patched, real):
         setattr(obj, attr, synced(fn, stage))
     try:
+        yield stage_s
+    finally:
+        for (obj, attr, _), fn in zip(patched, real):
+            setattr(obj, attr, fn)
+
+
+def phase_sharded(main):
+    """run_trio_sharded at phase 4's width on a 2x4 mesh of the one card: phase 4's report,
+    48 batches x 8 shards extraction launches, under a torch.profiler trace; the route,
+    fold, finalize and call seconds (each synchronized); then through the CLI `call --mesh
+    2x2` (one card a shard: refused with the JAX package's message) and `call --mesh 1x1`
+    (phase 4's report)."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.parallel.pipeline import run_trio_sharded
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    cfg = EngineConfig(**MAIN_CFG, mesh_shape=MESH)
+    paths = main["paths"]
+    stage_s = {}
+    m = Metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_stages(stage_s):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             reset_launches()
             t0 = time.perf_counter()
@@ -2327,9 +2385,6 @@ def phase_sharded(main):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             launches = read_launches()
-    finally:
-        for (obj, attr, _), fn in zip(patched, real):
-            setattr(obj, attr, fn)
     peak = torch.cuda.max_memory_allocated()
     trace = os.path.join(os.path.dirname(paths["mom"]), "sharded_trace.json")
     device = device_time(prof, trace, t1 - t0)
@@ -2370,6 +2425,317 @@ def phase_sharded(main):
            "device": device, "cli_mesh_2x2": refusal,
            "cli_mesh_1x1": {"wall_s": wall_1x1, "launches": launches_1x1}}
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------------------
+# phase 10: multi-process runs over torch.distributed, and the table subcommands
+# ---------------------------------------------------------------------------------------
+
+MH_RANKS = 2  # two processes on the one card: gloo (NCCL refuses two ranks on one GPU)
+MH_LOCAL = 4  # each rank's local devices: cuda:0 four times
+MH_TIMEOUT = 60.0  # init_process_group timeout: how long a collective waits for a dead peer
+MH_JOIN_S = 360.0  # the longest a launch may take before every worker is killed
+MH_SPILL_PASSES = 2
+# phase 5's device store holds 12,000,000 rows a pass over 4 passes; the same 48,000,000
+# rows over 2 passes and 8 shards
+MH_SPILL_ROWS = STORE_ROWS * SPILL_PASSES // MH_SPILL_PASSES // (MESH[0] * MESH[1])
+
+
+def _timed_stepper(real, feed_s):
+    """``multihost._make_stepper`` whose batches add their wait (decode, pack, step
+    alignment) to ``feed_s[0]``."""
+    def make(*a, **kw):
+        it = iter(real(*a, **kw))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            feed_s[0] += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
+    return make
+
+
+def _multihost_worker(rank, world, port, job):
+    """One rank of a phase-10 launch: join the gloo group, run each case of ``job`` with
+    run_trio_multihost on a mesh of MH_LOCAL copies of cuda:0 at phase 4's config, write
+    each case's report and measurements under ``job["out"]``."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from denovo_kmer_tpu_torch.oracle.scalar import format_report
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.parallel import multihost
+    from denovo_kmer_tpu_torch.parallel.distributed import initialize_distributed
+    from denovo_kmer_tpu_torch.parallel.mesh import make_mesh, table_axis_ici_local
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                           timeout=MH_TIMEOUT)
+    paths = job["paths"]
+    results = {}
+    for case in job["cases"]:
+        cfg = EngineConfig(**MAIN_CFG, mesh_shape=tuple(case["mesh"]))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mesh = make_mesh(tuple(case["mesh"]), [dev] * MH_LOCAL)
+        out = {"mesh": case["mesh"], "table_axis_local": table_axis_ici_local(mesh),
+               "warnings": [str(w.message) for w in caught]}
+        args = (paths["mom"], paths["dad"], paths["child"], cfg)
+        if case.get("refuse"):
+            try:
+                multihost.run_trio_multihost(*args, require_ici_local=True, mesh=mesh)
+                out["refused"] = None
+            except RuntimeError as e:
+                out["refused"] = str(e)
+        kw = {k: case[k] for k in ("feed", "n_passes", "spill_rows", "checkpoint_dir")
+              if case.get(k) is not None}
+        if case.get("fault"):
+            kw["fault"] = tuple(case["fault"])
+        feed_s, stage_s = [0.0], {}
+        real_stepper = multihost._make_stepper
+        multihost._make_stepper = _timed_stepper(real_stepper, feed_s)
+        trace = case.get("trace") and rank == 0
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with timed_stages(stage_s), contextlib.ExitStack() as stack:
+                prof = (stack.enter_context(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])) if trace else None)
+                reset_launches()
+                t0 = time.perf_counter()
+                cands = multihost.run_trio_multihost(*args, mesh=mesh, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_launches()
+        finally:
+            multihost._make_stepper = real_stepper
+        if prof is not None:
+            out["device"] = device_time(prof, os.path.join(job["out"], f"{case['name']}_"
+                                                           "trace.json"), wall)
+        with open(os.path.join(job["out"], f"{case['name']}.rank{rank}.tsv"), "w") as f:
+            f.write(format_report(cands, cfg.k))
+        out.update({"wall_s": wall, "feed_wait_s": feed_s[0],
+                    **{f"{stage}_s": t for stage, t in stage_s.items()},
+                    "launches": launches,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated()})
+        results[case["name"]] = out
+        with open(os.path.join(job["out"], f"{job['tag']}.rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _launch_ranks(job, world=MH_RANKS, join_s=MH_JOIN_S):
+    """Start ``world`` spawned ranks of ``_multihost_worker`` and watch them under one
+    deadline, killing every rank when it passes. → (exit codes, seconds from the start to
+    each rank's exit, the measurements each rank wrote)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_multihost_worker, args=(r, world, port, job))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    exits = [None] * world
+    try:
+        while any(x is None for x in exits):
+            if time.perf_counter() - t0 > join_s:
+                raise AssertionError(f"a rank outlived {join_s} s; every rank is killed")
+            for i, p in enumerate(procs):
+                if exits[i] is None and p.exitcode is not None:
+                    exits[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    measured = []
+    for r in range(world):
+        path = os.path.join(job["out"], f"{job['tag']}.rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                measured.append(json.load(f))
+        else:
+            measured.append({})
+    return [p.exitcode for p in procs], exits, measured
+
+
+def phase_multihost(work, main):
+    """run_trio_multihost in 2 spawned processes (gloo named explicitly), each rank on four
+    copies of cuda:0, at phase 4's BAMs and config: (a) a 2x4 mesh, stripe feed (reads
+    axis across the ranks, table axis inside each), traced on rank 0; (b) the range feed;
+    (c) a (1,8) mesh whose route all_to_all crosses the ranks (warns; require_ici_local
+    refuses it); (d) 2 re-decode passes, and 2 passes through the per-shard device store;
+    (e) child rank 1 killed at its 4th batch with a checkpoint directory: the survivor
+    exits non-zero within the group's timeout, and a relaunch loads both parents' npz
+    checkpoints and builds only the child. Every report, on every rank, equals phase 4's;
+    every trio launches the extraction 16 batches x 3 samples x 4 local shards a rank."""
+    out_dir = os.path.join(work, "multihost")
+    os.makedirs(out_dir, exist_ok=True)
+    ckpt = os.path.join(out_dir, "ckpt")
+    os.makedirs(ckpt, exist_ok=True)
+    mesh = list(MESH)
+    cases = [
+        {"name": "a_stripe_2x4", "mesh": mesh, "feed": "stripe", "trace": True},
+        {"name": "b_range_2x4", "mesh": mesh, "feed": "range"},
+        {"name": "c_stripe_1x8", "mesh": [1, MESH[0] * MESH[1]], "feed": "stripe",
+         "refuse": True},
+        {"name": "d_passes_2", "mesh": mesh, "feed": "range", "n_passes": MH_SPILL_PASSES},
+        {"name": "d_spill_2", "mesh": mesh, "feed": "range", "n_passes": MH_SPILL_PASSES,
+         "spill_rows": MH_SPILL_ROWS},
+    ]
+    base = {"paths": main["paths"], "out": out_dir}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    codes, exits, measured = _launch_ranks({**base, "tag": "cases", "cases": cases})
+    if codes != [0] * MH_RANKS:
+        raise AssertionError(f"multi-process cases: rank exit codes {codes}")
+    fault = {"name": "e_fault", "mesh": mesh, "feed": "range", "checkpoint_dir": ckpt,
+             "fault": ["child", 1, 4]}
+    codes_f, exits_f, _ = _launch_ranks({**base, "tag": "fault", "cases": [fault]})
+    if codes_f[1] != 17 or codes_f[0] == 0:
+        raise AssertionError(f"fault run: rank exit codes {codes_f} (want 17 and a "
+                             "non-zero survivor)")
+    lag = exits_f[0] - exits_f[1]
+    if lag > MH_TIMEOUT:
+        raise AssertionError(f"the survivor exited {lag:.1f} s after rank 1 died, past the "
+                             f"group's {MH_TIMEOUT} s timeout")
+    saved = sorted(os.listdir(ckpt))
+    if saved != ["dad.table.npz", "mom.table.npz"]:
+        raise AssertionError(f"fault run left checkpoints {saved}")
+    restart = {"name": "e_restart", "mesh": mesh, "feed": "range", "checkpoint_dir": ckpt}
+    codes_r, exits_r, measured_r = _launch_ranks({**base, "tag": "restart",
+                                                  "cases": [restart]})
+    if codes_r != [0] * MH_RANKS:
+        raise AssertionError(f"restart: rank exit codes {codes_r}")
+    for r in range(MH_RANKS):
+        measured[r].update(measured_r[r])
+
+    batches = main["batches"] // 3  # one sample's batches
+    trio = 3 * batches * MH_LOCAL  # extraction launches a rank for one trio
+    want_launches = {"a_stripe_2x4": trio, "b_range_2x4": trio, "c_stripe_1x8": trio,
+                     "d_passes_2": MH_SPILL_PASSES * trio, "d_spill_2": trio,
+                     "e_restart": batches * MH_LOCAL}  # the parents load from npz
+    for case in [*cases, restart]:
+        name = case["name"]
+        reports = []
+        for r in range(MH_RANKS):
+            with open(os.path.join(out_dir, f"{name}.rank{r}.tsv")) as f:
+                reports.append(f.read())
+        if reports != [main["report"]] * MH_RANKS:
+            raise AssertionError(f"multihost {name}: a rank's report differs from phase 4's")
+        for r in range(MH_RANKS):
+            got = measured[r][name]["launches"]
+            if got != {"extract_kmers": want_launches[name], "radix_partition": 0,
+                       "block_sort": 0}:
+                raise AssertionError(f"multihost {name} rank {r}: launches {got}, want "
+                                     f"{want_launches[name]} extractions")
+    for r in range(MH_RANKS):
+        a, c = measured[r]["a_stripe_2x4"], measured[r]["c_stripe_1x8"]
+        if not a["table_axis_local"] or a["warnings"]:
+            raise AssertionError(f"rank {r}: the 2x4 mesh is not local to each rank: {a}")
+        if c["table_axis_local"] or not any("cannot fit inside one locality domain" in w
+                                            for w in c["warnings"]):
+            raise AssertionError(f"rank {r}: the (1,8) mesh did not warn: {c['warnings']}")
+        if "table axis spans locality domains" not in (c["refused"] or ""):
+            raise AssertionError(f"rank {r}: require_ici_local gave {c['refused']!r}")
+    out = {"phase": "multihost", "power": power_line(), "ranks": MH_RANKS,
+           "backend": "gloo", "local_devices": f"cuda:0 x {MH_LOCAL}",
+           "config": MAIN_CFG, "timeout_s": MH_TIMEOUT, "spill_rows": MH_SPILL_ROWS,
+           "launch_s": {"cases": exits, "fault": exits_f, "restart": exits_r},
+           "fault": {"exit_codes": codes_f, "survivor_lag_s": lag, "checkpoints": saved},
+           "phase4_wall_s": main["wall_s"],
+           "cases": {case["name"]: {f"rank{r}": measured[r][case["name"]]
+                                    for r in range(MH_RANKS)}
+                     for case in [*cases, restart]}}
+    emit(out)
+    return out
+
+
+def _table_reference(paths):
+    """The numpy union of ``count`` checkpoints: sorted uint64 k-mer values and summed
+    counts."""
+    vals, counts = [], []
+    for path in paths:
+        keys, c, _meta = _npz(path)
+        v = np.zeros(keys.shape[0], np.uint64)
+        for w in range(keys.shape[1]):
+            v = (v << np.uint64(32)) | keys[:, w].astype(np.uint64)
+        vals.append(v)
+        counts.append(c.astype(np.int64))
+    v, c = np.concatenate(vals), np.concatenate(counts)
+    uniq, inv = np.unique(v, return_inverse=True)
+    return uniq, np.bincount(inv, weights=c).astype(np.int64)
+
+
+def _decode_values(vals, k):
+    shifts = (2 * (k - 1 - np.arange(k))).astype(np.uint64)
+    codes = ((vals[:, None] >> shifts[None, :]) & np.uint64(3)).astype(np.uint8)
+    letters = np.frombuffer(b"ACGT", np.uint8)[codes]
+    return [row.tobytes().decode() for row in letters]
+
+
+def phase_table_tools(work, main):
+    """`merge` of phase 6's two `count` checkpoints on the card, then `stats`, `histo`
+    and `dump` of the merged table, each equal to the numpy union of the two tables; then
+    `doctor --mesh 1x1 --probe-feed` on phase 4's child BAM (its lines and its verdict)."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(**MAIN_CFG)
+    flags = [*cli_flags(cfg), "--device", "cuda"]
+    parents = [os.path.join(work, f"{name}.npz") for name in ("mom", "dad")]
+    merged = os.path.join(work, "parents_merged.npz")
+    text, wall, launches = run_counted(lambda: _cli(["merge", *parents, "-o", merged,
+                                                     *flags]))
+    vals, counts = _table_reference(parents)
+    keys, got_counts, meta = _npz(merged)
+    got_vals = _table_reference([merged])[0]
+    if not (np.array_equal(got_vals, vals) and np.array_equal(got_counts, counts)):
+        raise AssertionError("merge: the merged table differs from the numpy union")
+    if text != f"{merged}\t{len(vals)} uniques\n":
+        raise AssertionError(f"merge printed {text!r}")
+    out = {"merge": {"wall_s": wall, "n": int(meta["n"]), "launches": launches}}
+    t0 = time.perf_counter()
+    stats = _cli(["stats", merged, *flags])
+    want = (f"Unique:    {int((counts == 1).sum())}\nDistinct:  {len(vals)}\n"
+            f"Total:     {int(counts.sum())}\nMax_count: {int(counts.max())}\n")
+    if stats != want:
+        raise AssertionError(f"stats: {stats!r} != {want!r}")
+    histo = _cli(["histo", merged, "--high", "50", *flags])
+    hist = np.bincount(np.minimum(counts, 50), minlength=51)
+    want = "".join(f"{c}\t{int(hist[c])}\n" for c in range(1, 51) if hist[c] or c == 50)
+    if histo != want:
+        raise AssertionError("histo differs from the numpy spectrum")
+    dump_path = os.path.join(work, "parents_merged.tsv")
+    _cli(["dump", merged, "-o", dump_path, *flags])
+    with open(dump_path) as f:
+        dump = f.read()
+    want = "".join(f"{s_}\t{int(c)}\n" for s_, c in zip(_decode_values(vals, cfg.k), counts))
+    if dump != want:
+        raise AssertionError("dump differs from the numpy table")
+    out["stats_histo_dump_s"] = time.perf_counter() - t0
+    from denovo_kmer_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["doctor", "--mesh", "1x1", "--probe-feed", main["paths"]["child"],
+                       "--device", "cuda"])
+    lines = buf.getvalue().splitlines()
+    if rc not in (0, 1) or not any(ln.startswith("feed probe") for ln in lines) or not any(
+            ln.startswith("torch") for ln in lines):
+        raise AssertionError(f"doctor --probe-feed exited {rc}: {lines}")
+    out["doctor"] = {"exit": rc, "lines": lines}
+    emit({"phase": "table_tools", **out})
     return out
 
 
@@ -2475,6 +2841,8 @@ def main() -> int:
             evidence = phase_evidence_sites(work, main_run)
             inputs = phase_inputs(work, main_run, evidence)
             sharded = phase_sharded(main_run)
+            multihost = phase_multihost(work, main_run)
+            phase_table_tools(work, main_run)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2485,6 +2853,8 @@ def main() -> int:
     spill_case = part_cases[0]
     launches = multipass["spill_store"]["launches"]
     by_path = {"run_trio_sharded_2x4": sharded["launches"],
+               **{f"multihost_{name}_rank0": case["rank0"]["launches"]
+                  for name, case in multihost["cases"].items()},
                **{f"small_{name}": r["launches"] for name, r in sharded_small.items()},
                "cli_mesh_1x1": sharded["cli_mesh_1x1"]["launches"],
                "run_trio": main_run["launches"],

@@ -19,6 +19,20 @@ Subcommands (the same flags and output as ``python -m denovo_kmer_tpu``):
     count       build one sample's table and save it as an ``.npz`` checkpoint
                 (``--resume``: mid-pass resume from ``<output>.resume.npz``)
     probe       query k-mer counts in a ``count`` checkpoint (``--kmers`` or stdin)
+    merge       merge ``count`` checkpoints with count addition (on ``--device``)
+    stats, histo, dump
+                summary, multiplicity spectrum and k-mer dump of a ``count`` checkpoint
+    view        convert/filter reads: SAM/BAM/FASTQ/FASTA/CRAM 3.0 and 3.1 out, ``-s``,
+                ``-c``, ``-F``, regions
+    flagstat, idxstats, depth, bedcov
+                flag categories, per-reference counts, per-base and per-BED coverage
+    index       BAI/CSI for a sorted BAM, CRAI for a CRAM, FAI for a FASTA, TBI for a
+                bgzipped VCF
+    sort, faidx, bgzip
+                coordinate-sort a BAM, fetch FASTA regions, BGZF (de)compression and .gzi
+    doctor      environment self-check (torch and its cards, ``--mesh``, the native shim,
+                nvcc); ``--probe-feed READS`` measures feeder supply against the card's
+                demand
     synth-trio  generate a deterministic synthetic trio (test/bench fixture)
 
 Reads come from BAM, CRAM (3.0/3.1; ``--reference`` for reference-based CRAM), SAM (plain or
@@ -29,8 +43,10 @@ filter without an index) or ``--regions-bed`` (BAM) restricts the reads.
 holds it; ``--ingest-threads N`` sets the C++ BAM feeder's decode threads; ``call
 --profile-dir DIR`` writes a ``torch.profiler`` Chrome trace. ``--mesh RxT`` runs ``call`` (plain,
 ``--passes N``, ``--passes N --spill-rows N``), ``sweep`` and ``cohort`` on the sharded engine
-over an R x T mesh: R·T cards, or with ``--device cpu`` R·T copies of the CPU; the other
-subcommands accept the flag and ignore it, as the JAX CLI does.
+over an R x T mesh: R·T cards, or with ``--device cpu`` R·T copies of the CPU; ``doctor
+--mesh RxT`` reports the mesh it would build; the other subcommands accept the flag and
+ignore it, as the JAX CLI does. Multi-process runs are a library entry point
+(``parallel/multihost.run_trio_multihost``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -559,6 +575,648 @@ def cmd_probe(args) -> int:
     return 0
 
 
+def cmd_index(args) -> int:
+    low = args.bam.lower()
+    if low.endswith((".fa", ".fasta", ".fna", ".fa.gz", ".fasta.gz", ".fna.gz",
+                     ".fa.bgz", ".fasta.bgz", ".fna.bgz")):
+        from denovo_kmer_tpu_torch.io.fasta import build_fai
+
+        print(build_fai(args.bam))
+        return 0
+    if low.endswith((".vcf.gz", ".vcf.bgz")):
+        from denovo_kmer_tpu_torch.io.tabix import write_tbi
+
+        print(write_tbi(args.bam))
+        return 0
+    if low.endswith(".cram"):
+        if args.csi:
+            raise SystemExit("CSI indexes are BAM-only; CRAM files take a CRAI "
+                             "(rerun without --csi)")
+        from denovo_kmer_tpu_torch.io.crai import write_crai
+
+        print(write_crai(args.bam))
+        return 0
+    from denovo_kmer_tpu_torch.io.bai import write_bai, write_csi
+
+    out = write_csi(args.bam) if args.csi else write_bai(args.bam)
+    print(out)
+    return 0
+
+
+def cmd_flagstat(args) -> int:
+    """Flag-category counts over any reads source (`samtools flagstat` analog)."""
+    from denovo_kmer_tpu_torch.pipeline import _record_stream
+
+    cfg = EngineConfig(reference_fasta=args.reference)
+    cats = [
+        ("total", lambda f: True),
+        ("primary", lambda f: not (f & 0x900)),
+        ("secondary", lambda f: bool(f & 0x100)),
+        ("supplementary", lambda f: bool(f & 0x800)),
+        ("duplicates", lambda f: bool(f & 0x400)),
+        ("mapped", lambda f: not (f & 0x4)),
+        ("paired in sequencing", lambda f: bool(f & 0x1)),
+        ("read1", lambda f: (f & 0x41) == 0x41),
+        ("read2", lambda f: (f & 0x81) == 0x81),
+        ("properly paired", lambda f: (f & 0x3) == 0x3),
+        ("singletons", lambda f: (f & 0xD) == 0x9),
+        ("QC fail", lambda f: bool(f & 0x200)),
+    ]
+    counts = [0] * len(cats)
+    for rec in _record_stream(args.input, cfg, region=_resolve_region(args)):
+        f = rec.flag
+        for i, (_n, pred) in enumerate(cats):
+            if pred(f):
+                counts[i] += 1
+    for (name, _), c in zip(cats, counts):
+        print(f"{c}\t{name}")
+    return 0
+
+
+def cmd_idxstats(args) -> int:
+    """Per-reference mapped/unmapped read counts (`samtools idxstats` analog):
+    `name<TAB>length<TAB>#mapped<TAB>#unmapped` per contig plus a trailing
+    `*` line with the no-coordinate count. A local BAM with a sibling .bai/.csi
+    carrying pseudo-bin metadata answers from the index alone; everything else
+    (SAM/CRAM/FASTQ, remote, meta-less index) streams the records."""
+    import os
+
+    from denovo_kmer_tpu_torch.pipeline import _record_stream, source_references
+
+    refs = source_references(args.input)
+    low = args.input.lower()
+    if low.endswith(".bam") and "://" not in args.input:
+        from denovo_kmer_tpu_torch.io.bai import index_stats
+
+        for suffix in (".bai", ".csi"):
+            p = args.input + suffix
+            if os.path.exists(p):
+                got = index_stats(p)
+                if got is not None:
+                    per_ref, n_no_coor = got
+                    for (name, length), (m, u) in zip(refs, per_ref):
+                        print(f"{name}\t{length}\t{m}\t{u}")
+                    print(f"*\t0\t0\t{n_no_coor}")
+                    return 0
+    cfg = EngineConfig(reference_fasta=args.reference)
+    mapped = [0] * len(refs)
+    unmapped = [0] * len(refs)
+    n_no_coor = 0
+    for rec in _record_stream(args.input, cfg):
+        refid = getattr(rec, "refid", -1)
+        if 0 <= refid < len(refs) and getattr(rec, "pos", -1) >= 0:
+            if rec.flag & 0x4:
+                unmapped[refid] += 1
+            else:
+                mapped[refid] += 1
+        else:
+            n_no_coor += 1
+    for (name, length), m, u in zip(refs, mapped, unmapped):
+        print(f"{name}\t{length}\t{m}\t{u}")
+    print(f"*\t0\t0\t{n_no_coor}")
+    return 0
+
+
+def _coverage_diffs(input_path, refs, cfg, region, exclude_flags):
+    """Per-contig coverage diff arrays (+1/-1 per aligned M/=/X interval; one
+    cumsum yields per-base depth). Shared by `depth` and `bedcov`. Deletions/
+    splices (D/N) span the reference without depositing coverage — samtools
+    semantics."""
+    import numpy as np
+
+    from denovo_kmer_tpu_torch.pipeline import _record_stream
+
+    diffs = {}
+    for rec in _record_stream(input_path, cfg, region=region):
+        refid = getattr(rec, "refid", -1)
+        if not (0 <= refid < len(refs)) or getattr(rec, "pos", -1) < 0:
+            continue
+        if rec.flag & 0x4 or rec.flag & exclude_flags:
+            continue
+        d = diffs.get(refid)
+        if d is None:
+            d = diffs[refid] = np.zeros(refs[refid][1] + 1, np.int32)
+        p = rec.pos
+        for n, op in rec.cigar:
+            if op in (0, 7, 8):  # M/=/X: aligned bases deposit coverage
+                lo, hi = max(p, 0), min(p + n, len(d) - 1)
+                if hi > lo:
+                    d[lo] += 1
+                    d[hi] -= 1
+                p += n
+            elif op in (2, 3):  # D/N: span the reference, no coverage
+                p += n
+    return diffs
+
+
+def cmd_depth(args) -> int:
+    """Per-position aligned-base coverage (`samtools depth` analog): lines of
+    `ref<TAB>pos1<TAB>depth` for covered positions (all positions with ``-a``)."""
+    import numpy as np
+
+    from denovo_kmer_tpu_torch.pipeline import source_references
+
+    refs = source_references(args.input)
+    if not refs:
+        raise SystemExit("depth: input has no reference dictionary (FASTQ/FASTA?)")
+    cfg = EngineConfig(reference_fasta=args.reference)
+    region = _resolve_region(args)
+    diffs = _coverage_diffs(args.input, refs, cfg, region, args.exclude_flags)
+    intervals = {}  # refid -> [(beg0, end0)]: output clips to the restriction
+    if region is not None:
+        from denovo_kmer_tpu_torch.io.bai import parse_region
+
+        regs = region if isinstance(region, (list, tuple)) else [region]
+        for rs in regs:
+            rid, b0, e0 = parse_region(rs, refs)
+            intervals.setdefault(rid, []).append((b0, e0))
+    rids = (
+        sorted(intervals) if intervals
+        else (range(len(refs)) if args.all else sorted(diffs))
+    )
+    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        for refid in rids:
+            name, length = refs[refid]
+            d = diffs.get(refid)
+            cov = (
+                np.cumsum(d[:-1]) if d is not None
+                else np.zeros(length, np.int32)
+            )
+            if refid in intervals:
+                keep = np.zeros(length, bool)
+                for b0, e0 in intervals[refid]:
+                    keep[b0:e0] = True
+            else:
+                keep = np.ones(length, bool)
+            if not args.all:
+                keep &= cov > 0
+            pos0 = np.flatnonzero(keep)
+            out.write(
+                "".join(f"{name}\t{p + 1}\t{c}\n"
+                        for p, c in zip(pos0, cov[pos0]))
+            )
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def cmd_bedcov(args) -> int:
+    """Per-BED-region total aligned-base coverage (`samtools bedcov` analog):
+    each BED line echoed with the sum of per-base depth over the interval
+    appended. One cumsum per touched contig, interval sums via prefix
+    differences."""
+    import numpy as np
+
+    from denovo_kmer_tpu_torch.io.bai import parse_bed
+    from denovo_kmer_tpu_torch.pipeline import source_references
+
+    refs = source_references(args.input)
+    if not refs:
+        raise SystemExit("bedcov: input has no reference dictionary")
+    names = {n: i for i, (n, _) in enumerate(refs)}
+    cfg = EngineConfig(reference_fasta=args.reference)
+    diffs = _coverage_diffs(args.input, refs, cfg, None, args.exclude_flags)
+    prefix = {}  # refid -> cumsum of per-base depth (prefix[i] = sum below i)
+    for rid, d in diffs.items():
+        prefix[rid] = np.concatenate([[0], np.cumsum(np.cumsum(d[:-1]))])
+    for region in parse_bed(args.bed):
+        name, _, rng = region.partition(":")
+        if name not in names:
+            raise SystemExit(f"bedcov: contig {name!r} not in {args.input}")
+        rid = names[name]
+        b, _, e = rng.replace(",", "").partition("-")
+        b0, e0 = int(b) - 1, min(int(e), refs[rid][1])
+        pre = prefix.get(rid)
+        total = int(pre[e0] - pre[b0]) if pre is not None else 0
+        print(f"{name}\t{b0}\t{e0}\t{total}")
+    return 0
+
+
+def cmd_faidx(args) -> int:
+    """Fetch FASTA subsequences by region (`samtools faidx` analog): builds the
+    .fai on first use, prints each region as a 60-column-wrapped FASTA record.
+    Regions are 1-based inclusive `name` or `name:start-end`."""
+    from denovo_kmer_tpu_torch.io.fasta import FaidxFasta
+
+    fa = FaidxFasta(args.fasta)
+    lengths = fa.lengths()
+    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        for region in args.regions:
+            name, _, rng = region.partition(":")
+            if name not in fa:
+                raise SystemExit(f"faidx: contig {name!r} not in {args.fasta}")
+            length = lengths[name]
+            if rng:
+                b, _, e = rng.replace(",", "").partition("-")
+                beg0 = max(int(b) - 1, 0) if b else 0
+                end0 = min(int(e), length) if e else length
+                if end0 <= beg0:
+                    raise SystemExit(f"faidx: empty region {region!r}")
+            else:
+                beg0, end0 = 0, length
+            seq = fa.fetch(name, beg0, end0)
+            out.write(f">{region}\n")
+            for i in range(0, len(seq), 60):
+                out.write(seq[i : i + 60] + "\n")
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def cmd_view(args) -> int:
+    """Format conversion + filtering over any reads source (`samtools view`
+    analog): BAM/SAM/CRAM in; SAM (default, stdout), BAM, FASTQ or FASTA out;
+    --region/--regions-bed restriction; -F flag exclusion; -c count-only.
+    CRAM records surface seq/qual/flag (positions are a slice property the
+    feeder-grade reader does not retain), so CRAM→BAM/SAM rows are
+    sequence-level."""
+    from denovo_kmer_tpu_torch.io.bam import BamRecord, BamWriter
+    from denovo_kmer_tpu_torch.io.sam import format_sam_record, sam_header_lines
+    from denovo_kmer_tpu_torch.pipeline import _record_stream, source_references
+
+    cfg = EngineConfig(reference_fasta=args.reference)
+    region = _resolve_region(args)
+    recs = _record_stream(args.input, cfg, region=region)
+    flt = args.exclude_flags
+    stream = (r for r in recs if not (r.flag & flt))
+    if args.subsample is not None:
+        # samtools -s semantics: keep a deterministic name-hash fraction, so
+        # paired records (same name) are kept or dropped together
+        import zlib as _z
+
+        frac = args.subsample - int(args.subsample)
+        seed = int(args.subsample)
+        if frac <= 0:
+            raise SystemExit("view -s needs a fractional part, e.g. 42.25")
+        cut = int(frac * (1 << 32))
+
+        def _keep(r, i):
+            name = getattr(r, "name", None) or f"r{i}"
+            return (_z.crc32(f"{seed}:{name}".encode()) & 0xFFFFFFFF) < cut
+
+        stream = (r for i, r in enumerate(stream) if _keep(r, i))
+
+    if args.count:
+        print(sum(1 for _ in stream))
+        return 0
+
+    out = args.output
+    fmt = args.format
+    if fmt is None:
+        low = (out or "-").lower()
+        fmt = ("bam" if low.endswith(".bam") else
+               "cram" if low.endswith(".cram") else
+               "fastq" if low.endswith((".fastq", ".fq")) else
+               "fasta" if low.endswith((".fa", ".fasta")) else "sam")
+    refs = source_references(args.input)
+    names = [n for n, _ in refs]
+
+    def as_bam_record(r, i):
+        if isinstance(r, BamRecord):
+            return r
+        return BamRecord(name=getattr(r, "name", None) or f"r{i}",
+                         flag=getattr(r, "flag", 4) | 4, seq=r.seq, qual=r.qual)
+
+    if fmt == "bam":
+        if not out or out == "-":
+            raise SystemExit("view: BAM output needs -o FILE (binary stdout)")
+        with open(out, "wb") as f, BamWriter(f, references=refs) as w:
+            for i, r in enumerate(stream):
+                w.write(as_bam_record(r, i))
+        return 0
+
+    if fmt == "cram":
+        # samtools view -C analog. With --reference: reference-based multiref
+        # containers with per-record flags+quals preserved (byte-exact engine
+        # view — `call` on the converted file matches the BAM). Without a
+        # reference: sequence-archive profile via the BA series, where every
+        # record gains the unmapped flag (CRAM unmapped-slice semantics) — the
+        # default call filter (SPEC_SEMANTICS §4) skips unmapped reads, so the
+        # reference-based form is what conversion pipelines should use.
+        if not out or out == "-":
+            raise SystemExit("view: CRAM output needs -o FILE (binary stdout)")
+        from denovo_kmer_tpu_torch.io.cram import M_GZIP, M_RANSNX16, write_cram
+        from denovo_kmer_tpu_torch.pipeline import source_header
+
+        version = (3, 1) if args.cram_version == "3.1" else (3, 0)
+        method = M_RANSNX16 if version == (3, 1) else M_GZIP
+        hdr = source_header(args.input)[1]
+        if refs and "@SQ" not in hdr:
+            # the reader maps slice ref ids to FASTA contigs via @SQ names
+            hdr = hdr.rstrip("\n") + "\n" + "\n".join(
+                sam_header_lines(refs)[1:]) + "\n"
+        if args.reference:
+            from denovo_kmer_tpu_torch.io.fasta import FaidxFasta
+
+            fa = FaidxFasta(args.reference)
+            contigs: dict = {}
+            tuples = []
+            for i, r in enumerate(stream):
+                rec = as_bam_record(r, i)
+                placed = 0 <= rec.refid < len(refs) and rec.pos >= 0
+                if placed and not (rec.flag & 0x4):
+                    rid = rec.refid
+                    if rid not in contigs:
+                        name = refs[rid][0]
+                        if name not in fa:
+                            raise SystemExit(
+                                f"view: contig {name!r} not in {args.reference}")
+                        contigs[rid] = fa[name].upper()
+                    tuples.append((rec.seq, rec.pos + 1, rid, rec.flag, rec.qual))
+                else:
+                    # unmapped (or unplaced) records ride the BA series; BAM
+                    # semantics require the flag bit they already carry
+                    tuples.append((rec.seq, 0, -1, rec.flag | 0x4, rec.qual))
+            write_cram(out, [], sam_header=hdr, mapped=tuples,
+                       reference=contigs, version=version, method=method,
+                       rans_order=1)
+        else:
+            print("view: no --reference — writing a sequence-archive CRAM "
+                  "(records become flag-unmapped)", file=sys.stderr)
+            write_cram(out, ((r.seq, r.qual, r.flag) for r in stream),
+                       sam_header=hdr, version=version, method=method,
+                       rans_order=1)
+        return 0
+
+    fh = sys.stdout if not out or out == "-" else open(out, "w")
+    try:
+        if fmt == "sam":
+            if not args.no_header:
+                for ln in sam_header_lines(refs):
+                    fh.write(ln + "\n")
+            for i, r in enumerate(stream):
+                fh.write(format_sam_record(as_bam_record(r, i), names) + "\n")
+        elif fmt in ("fastq", "fasta"):
+            for i, r in enumerate(stream):
+                name = getattr(r, "name", None) or f"r{i}"
+                if fmt == "fasta":
+                    fh.write(f">{name}\n{r.seq}\n")
+                else:
+                    q = r.qual if r.qual is not None else (0,) * len(r.seq)
+                    qs = "".join(chr(min(x, 93) + 33) for x in q)
+                    fh.write(f"@{name}\n{r.seq}\n+\n{qs}\n")
+        else:
+            raise SystemExit(f"view: unknown --format {fmt!r}")
+    finally:
+        if fh is not sys.stdout:
+            fh.close()
+    return 0
+
+
+def cmd_bgzip(args) -> int:
+    """bgzip-compatible block compression: compress to BGZF, -d to inflate,
+    -r to (re)build the .gzi random-access index (io/bgzf.py)."""
+    from denovo_kmer_tpu_torch.io.bgzf import BgzfReader, BgzfWriter, build_gzi, is_bgzf
+
+    path = args.file
+    if args.reindex:
+        if not is_bgzf(path):
+            raise SystemExit(f"{path} is not BGZF; cannot build a .gzi")
+        print(build_gzi(path))
+        return 0
+    if args.decompress:
+        if not path.endswith((".gz", ".bgz")):
+            raise SystemExit(f"{path}: expected a .gz/.bgz suffix to strip")
+        if not is_bgzf(path):
+            raise SystemExit(f"{path} is not BGZF (plain gzip: use gunzip)")
+        out = args.output or path.rsplit(".", 1)[0]
+        with open(path, "rb") as f, open(out, "wb") as o:
+            r = BgzfReader(f)
+            while True:
+                chunk = r.read(1 << 20)
+                if not chunk:
+                    break
+                o.write(chunk)
+        print(out)
+        return 0
+    out = args.output or path + ".gz"
+    with open(path, "rb") as f, open(out, "wb") as o, BgzfWriter(o) as w:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                break
+            w.write(chunk)
+    print(out)
+    return 0
+
+
+def cmd_sort(args) -> int:
+    from denovo_kmer_tpu_torch.io.bam import sort_bam
+
+    print(sort_bam(args.bam, args.output))
+    return 0
+
+
+def _load_count_table(args, cfg, capacity=None):
+    """A `count` checkpoint on ``--device`` (default the card), read back to the host:
+    (uint32 keys (n, W), uint32 counts (n,), n)."""
+    from denovo_kmer_tpu_torch.ops.table import table_to_numpy
+    from denovo_kmer_tpu_torch.utils.checkpoint import load_table
+
+    keys, counts, n = table_to_numpy(load_table(args.table, cfg, capacity=capacity,
+                                                device=args.device))
+    return keys[:n], counts[:n], n
+
+
+def cmd_merge(args) -> int:
+    """Merge N `count` checkpoints with count addition (`jellyfish merge` analog): one
+    device merge per input (``ops/table.merge_tables`` on ``--device``), overflow raises
+    with the capacity to use (never drops)."""
+    from denovo_kmer_tpu_torch.ops.table import merge_tables
+    from denovo_kmer_tpu_torch.pipeline import TableOverflowError, _overflow_msg, resolve_device
+    from denovo_kmer_tpu_torch.utils.checkpoint import load_table, save_table
+
+    cfg = _cfg_from_args(args)
+    cap = args.table_capacity
+    dev = resolve_device(args.device)
+    acc = load_table(args.tables[0], cfg, capacity=cap, device=dev)
+    for path in args.tables[1:]:
+        t = load_table(path, cfg, capacity=cap, device=dev)
+        acc = merge_tables(acc, t, cap)
+        n = int(acc.n)
+        if n > cap:
+            raise TableOverflowError(_overflow_msg(n, cap))
+    save_table(args.output, acc, cfg)
+    print(f"{args.output}\t{int(acc.n)} uniques")
+    return 0
+
+
+def cmd_histo(args) -> int:
+    """k-mer multiplicity spectrum of a `count` checkpoint (`jellyfish histo` analog):
+    lines of `count<TAB>n_distinct_kmers`, counts above --high fold into the last bin."""
+    import numpy as np
+
+    _keys, counts, n = _load_count_table(args, _cfg_from_args(args))
+    counts = counts.astype(np.int64)
+    if n and counts.min() < 1:
+        counts = counts[counts >= 1]  # defensive: padding never counts
+    hi = args.high
+    clipped = np.minimum(counts, hi)
+    hist = np.bincount(clipped, minlength=hi + 1)
+    for c in range(args.low, hi + 1):
+        if hist[c] or c == hi:
+            print(f"{c}\t{int(hist[c])}")
+    return 0
+
+
+def cmd_dump(args) -> int:
+    """Dump a `count` checkpoint's k-mers (`jellyfish dump` analog): TSV `kmer<TAB>count`
+    (default) or FASTA with the count as the header."""
+    from denovo_kmer_tpu_torch.pipeline import decode_kmers_np
+
+    cfg = _cfg_from_args(args)
+    keys, counts, n = _load_count_table(args, cfg)
+    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        chunk = 65536  # bounded memory on WGS-scale tables
+        for i in range(0, n, chunk):
+            strs = decode_kmers_np(keys[i : i + chunk], cfg.k)
+            cs = counts[i : i + chunk]
+            if args.fasta:
+                out.write("".join(f">{int(c)}\n{s}\n" for s, c in zip(strs, cs)))
+            else:
+                out.write("".join(f"{s}\t{int(c)}\n" for s, c in zip(strs, cs)))
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """Summary stats of a `count` checkpoint (`jellyfish stats` analog): Unique
+    (count==1), Distinct, Total, Max_count."""
+    import numpy as np
+
+    _keys, counts, n = _load_count_table(args, _cfg_from_args(args))
+    counts = counts.astype(np.uint64)
+    print(f"Unique:    {int((counts == 1).sum())}")
+    print(f"Distinct:  {n}")
+    print(f"Total:     {int(counts.sum())}")
+    print(f"Max_count: {int(counts.max()) if n else 0}")
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """Environment self-check: torch and its devices, the mesh ``--mesh`` would build,
+    the native shim, the CUDA toolchain, codec availability: the first thing to run on a
+    new host."""
+    import platform
+
+    import torch
+
+    print(f"python      {platform.python_version()} ({platform.machine()})")
+    if torch.cuda.is_available():
+        kinds: dict = {}
+        for i in range(torch.cuda.device_count()):
+            name = torch.cuda.get_device_name(i)
+            kinds[name] = kinds.get(name, 0) + 1
+        devs = ", ".join(f"{n}x {k}" for k, n in kinds.items())
+    else:
+        devs = "none (CUDA unavailable: run with --device cpu)"
+    print(f"torch       {torch.__version__} (CUDA {torch.version.cuda}); devices: {devs}")
+    mesh_arg = getattr(args, "mesh", None)
+    if mesh_arg and tuple(mesh_arg) != (1, 1):
+        # what make_mesh would build: the route all_to_all rides the table axis, so
+        # whether it stays inside one process decides the scaling story
+        from denovo_kmer_tpu_torch.parallel.mesh import make_mesh, table_axis_ici_local
+
+        try:
+            mesh = make_mesh(tuple(mesh_arg), device=args.device)
+            loc = ("local (route all_to_all stays inside one process)"
+                   if table_axis_ici_local(mesh)
+                   else "SPANS processes (route crosses the slow inter-host link — "
+                        "prefer a taller reads axis)")
+            print(f"mesh        {mesh_arg[0]}x{mesh_arg[1]}: table axis {loc}")
+        except (ValueError, RuntimeError) as e:
+            print(f"mesh        {mesh_arg[0]}x{mesh_arg[1]}: UNBUILDABLE ({e})")
+    try:
+        from denovo_kmer_tpu_torch.io.native import native_available
+
+        ok = native_available()
+        print(f"C++ shim    {'built (native BGZF/BAM/rANS/arith decode)' if ok else 'not built (pure-Python fallback active)'}")
+    except Exception as e:
+        print(f"C++ shim    load failed ({e})")
+    from denovo_kmer_tpu_torch.utils.cuda_build import _nvcc
+
+    try:
+        print(f"nvcc        {_nvcc()} (the CUDA kernels build at first use)")
+    except RuntimeError:
+        print("nvcc        not found (the CUDA kernels cannot build here)")
+    import bz2 as _b, lzma as _l  # noqa: F401  (CRAM codec deps, stdlib)
+
+    print("codecs      BGZF/gzip, bz2, lzma, rANS 4x8, rANS Nx16, arith, "
+          "fqzcomp, tok3")
+    cfg = EngineConfig()
+    print(f"defaults    k={cfg.k} canonical={cfg.canonical} "
+          f"flag_mask=0x{cfg.filter_flag_mask:x} table=2^{cfg.table_capacity.bit_length()-1}")
+    if getattr(args, "probe_feed", None):
+        return _doctor_probe_feed(args)
+    return 0
+
+
+# The card's consumption rate (k-mer windows/s) the feeder must sustain to keep it busy:
+# chip_smoke.py phase 4's traced run_trio (k=31, 3 x 262,144 reads of 151 bp, 121 windows
+# a read) took 0.0661 s of device-busy time on an NVIDIA H100 80GB HBM3 at a 700 W power
+# limit: 1.44e9 windows/s. DENOVO_CHIP_KMERS_PER_SEC overrides it for other cards; read at
+# probe time so tests can set it.
+_CHIP_DEMAND_DEFAULT = 1.44e9
+_CHIP_DEMAND_SOURCE = "measured on an NVIDIA H100 80GB HBM3, 700 W"
+
+
+def _doctor_probe_feed(args) -> int:
+    """Feeder honesty probe: measure this host's decode+pack supply on the EXACT feed path
+    ``call`` would take (``pipeline.packed_batches``: the C++ BAM feeder, the columnar CRAM
+    feeder, or the pure-Python loop) and compare it with the card's measured demand;
+    without this probe nothing at runtime says the feeder is the bottleneck."""
+    import time as _t
+
+    import numpy as np
+
+    from denovo_kmer_tpu_torch.pipeline import packed_batches
+
+    path = args.probe_feed
+    cfg = EngineConfig(reference_fasta=getattr(args, "reference", None))
+    max_batches = max(int(getattr(args, "probe_batches", 8) or 8), 1)
+    n_reads = 0
+    n_windows = 0
+    t0 = _t.perf_counter()
+    deadline = t0 + 10.0
+    for i, packed in enumerate(packed_batches(path, cfg)):
+        n_reads += packed.n_reads
+        # windows actually produced (per-read lengths, k-truncated)
+        lens = np.asarray(packed.length[: packed.n_reads])
+        n_windows += int(np.maximum(lens - cfg.k + 1, 0).sum())
+        if i + 1 >= max_batches or _t.perf_counter() > deadline:
+            break
+    dt = max(_t.perf_counter() - t0, 1e-9)
+    supply_reads = n_reads / dt
+    supply_kmers = n_windows / dt
+    demand = float(os.environ.get("DENOVO_CHIP_KMERS_PER_SEC", _CHIP_DEMAND_DEFAULT))
+    cores = os.cpu_count() or 1
+    print(f"feed probe  {path}: {supply_reads:,.0f} reads/s, "
+          f"{supply_kmers/1e6:.1f} Mk-mers/s supply from {n_reads} reads "
+          f"({dt:.2f}s, {cores} core{'s' if cores != 1 else ''})")
+    print(f"card demand ~{demand/1e6:.0f} Mk-mers/s/card "
+          f"({_CHIP_DEMAND_SOURCE}; DENOVO_CHIP_KMERS_PER_SEC to override)")
+    if supply_kmers < demand:
+        ratio = demand / max(supply_kmers, 1e-9)
+        hint = ""
+        if cores == 1:
+            hint = " (single-core host: the decode pool needs more cores)"
+        elif path.endswith(".cram"):
+            hint = (" (CRAM entropy codec may be the cost — arith/fqzcomp decode "
+                    "10-20x slower than rANS; consider recoding to rANS or BAM)")
+        print(f"WARNING: feeder supplies {1/ratio:.0%} of one card's demand — "
+              f"the card will idle {1 - 1/ratio:.0%} of the time{hint}")
+        return 1
+    print("feeder OK: supply >= one card's demand")
+    return 0
+
+
 def cmd_synth_trio(args) -> int:
     from denovo_kmer_tpu_torch.io.synth import (
         TrioSpec,
@@ -683,6 +1341,161 @@ def main(argv=None) -> int:
                     help="comma-separated k-mers (default: read one per line from stdin)")
     _add_engine_args(pq)
     pq.set_defaults(fn=cmd_probe)
+
+    pf = sub.add_parser("flagstat",
+                        help="flag-category counts (samtools flagstat analog)")
+    pf.add_argument("input")
+    pf.add_argument("--region", default=None)
+    pf.add_argument("--regions-bed", default=None)
+    pf.add_argument("--reference", default=None)
+    pf.set_defaults(fn=cmd_flagstat)
+
+    pdr = sub.add_parser("doctor", help="environment self-check: devices, "
+                                        "native shim, codecs; --probe-feed "
+                                        "measures feeder supply vs card demand")
+    pdr.add_argument("--probe-feed", default=None, metavar="READS",
+                     help="BAM/CRAM file: measure this host's decode+pack rate on "
+                          "the production feed path and warn if it cannot keep one "
+                          "card busy (exit 1 on warning)")
+    pdr.add_argument("--probe-batches", type=int, default=8,
+                     help="batches to time in the feed probe (default 8)")
+    pdr.add_argument("--mesh", type=_mesh_shape, default=(1, 1),
+                     help="also report the READSxTABLE mesh make_mesh would "
+                          "build and whether its table axis stays inside one process")
+    pdr.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                     help="where --mesh draws its devices (default: the CUDA cards)")
+    pdr.add_argument("--reference", default=None,
+                     help="reference FASTA for reference-based CRAM probe input")
+    pdr.set_defaults(fn=cmd_doctor)
+
+    px = sub.add_parser(
+        "idxstats", help="per-reference mapped/unmapped counts "
+                         "(samtools idxstats analog; index fast path)")
+    px.add_argument("input")
+    px.add_argument("--reference", default=None,
+                    help="reference FASTA for reference-based CRAM input")
+    px.set_defaults(fn=cmd_idxstats)
+
+    pdp = sub.add_parser(
+        "depth", help="per-position aligned-base coverage "
+                      "(samtools depth analog)")
+    pdp.add_argument("input")
+    pdp.add_argument("-o", "--output", default="-")
+    pdp.add_argument("-a", "--all", action="store_true",
+                     help="print zero-coverage positions too")
+    pdp.add_argument("-F", "--exclude-flags", type=_int_maybe_hex,
+                     default=0x700,  # samtools default: unmap/secondary/qcfail/dup
+                     help="drop records with any of these flag bits (hex ok)")
+    pdp.add_argument("--region", default=None)
+    pdp.add_argument("--regions-bed", default=None)
+    pdp.add_argument("--reference", default=None,
+                     help="reference FASTA for reference-based CRAM input")
+    pdp.set_defaults(fn=cmd_depth)
+
+    pbc = sub.add_parser(
+        "bedcov", help="per-BED-region total aligned-base coverage "
+                       "(samtools bedcov analog)")
+    pbc.add_argument("bed", help="BED3+ file of regions")
+    pbc.add_argument("input")
+    pbc.add_argument("-F", "--exclude-flags", type=_int_maybe_hex,
+                     default=0x700,
+                     help="drop records with any of these flag bits (hex ok)")
+    pbc.add_argument("--reference", default=None,
+                     help="reference FASTA for reference-based CRAM input")
+    pbc.set_defaults(fn=cmd_bedcov)
+
+    pst = sub.add_parser(
+        "stats", help="summary stats of a `count` checkpoint "
+                      "(jellyfish stats analog)")
+    pst.add_argument("table", help="table checkpoint (.npz from `count`)")
+    _add_engine_args(pst)
+    pst.set_defaults(fn=cmd_stats)
+
+    pfa = sub.add_parser(
+        "faidx", help="fetch FASTA subsequences by region "
+                      "(samtools faidx analog; builds .fai on first use)")
+    pfa.add_argument("fasta")
+    pfa.add_argument("regions", nargs="+",
+                     help="1-based inclusive `name` or `name:start-end`")
+    pfa.add_argument("-o", "--output", default="-")
+    pfa.set_defaults(fn=cmd_faidx)
+
+    pv = sub.add_parser(
+        "view", help="convert/filter reads (samtools view analog): BAM/SAM/CRAM "
+                     "in, SAM/BAM/FASTQ/FASTA out, region + flag filters")
+    pv.add_argument("input")
+    pv.add_argument("-o", "--output", default="-")
+    pv.add_argument("--format", choices=("sam", "bam", "cram", "fastq", "fasta"),
+                    default=None, help="default: by -o extension, else SAM")
+    pv.add_argument("--cram-version", choices=("3.0", "3.1"), default="3.0",
+                    help="CRAM output version (3.1 uses rANS Nx16 blocks)")
+    pv.add_argument("-F", "--exclude-flags", type=_int_maybe_hex, default=0,
+                    help="drop records with any of these flag bits (hex ok)")
+    pv.add_argument("-c", "--count", action="store_true",
+                    help="print the record count only")
+    pv.add_argument("-s", "--subsample", type=float, default=None,
+                    help="SEED.FRACTION (samtools -s): keep a deterministic "
+                         "name-hash fraction of the reads, e.g. 42.25")
+    pv.add_argument("--no-header", action="store_true",
+                    help="omit the SAM header lines")
+    pv.add_argument("--region", default=None)
+    pv.add_argument("--regions-bed", default=None)
+    pv.add_argument("--reference", default=None,
+                    help="reference FASTA for reference-based CRAM input")
+    pv.set_defaults(fn=cmd_view)
+
+    pm = sub.add_parser(
+        "merge", help="merge `count` checkpoints with count addition "
+                      "(jellyfish merge analog)")
+    pm.add_argument("tables", nargs="+", help="input .npz checkpoints")
+    pm.add_argument("-o", "--output", required=True)
+    _add_engine_args(pm)
+    pm.set_defaults(fn=cmd_merge)
+
+    pt = sub.add_parser(
+        "histo", help="k-mer multiplicity spectrum of a `count` checkpoint "
+                      "(jellyfish histo analog)")
+    pt.add_argument("table", help="table checkpoint (.npz from `count`)")
+    pt.add_argument("--low", type=int, default=1)
+    pt.add_argument("--high", type=int, default=10_000,
+                    help="counts above this fold into the last bin")
+    _add_engine_args(pt)
+    pt.set_defaults(fn=cmd_histo)
+
+    pd = sub.add_parser(
+        "dump", help="dump a `count` checkpoint's k-mers to TSV or FASTA "
+                     "(jellyfish dump analog)")
+    pd.add_argument("table", help="table checkpoint (.npz from `count`)")
+    pd.add_argument("-o", "--output", default="-")
+    pd.add_argument("--fasta", action="store_true",
+                    help="FASTA with the count as each record's header")
+    _add_engine_args(pd)
+    pd.set_defaults(fn=cmd_dump)
+
+    pb = sub.add_parser(
+        "bgzip", help="block-compress a file to BGZF (bgzip-compatible); "
+                      "-d inflates, -r builds the .gzi random-access index",
+    )
+    pb.add_argument("file")
+    pb.add_argument("-d", "--decompress", action="store_true")
+    pb.add_argument("-r", "--reindex", action="store_true",
+                    help="write <file>.gzi (block index for random access)")
+    pb.add_argument("-o", "--output", default=None)
+    pb.set_defaults(fn=cmd_bgzip)
+
+    pi = sub.add_parser(
+        "index", help="write a BAI/CSI index for a coordinate-sorted BAM, "
+                      "a CRAI for a CRAM, a FAI for a FASTA, or a TBI for a "
+                      "bgzipped VCF"
+    )
+    pi.add_argument("bam")
+    pi.add_argument("--csi", action="store_true", help="write .csi instead of .bai")
+    pi.set_defaults(fn=cmd_index)
+
+    po = sub.add_parser("sort", help="coordinate-sort a BAM (fixture/subset scale)")
+    po.add_argument("bam")
+    po.add_argument("-o", "--output", required=True)
+    po.set_defaults(fn=cmd_sort)
 
     ps = sub.add_parser("synth-trio", help="generate a synthetic trio fixture")
     ps.add_argument("outdir")

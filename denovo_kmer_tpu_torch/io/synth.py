@@ -136,23 +136,22 @@ def write_trio_bams(trio: SynthTrio, outdir: str) -> Dict[str, str]:
     return paths
 
 
-def write_truth_vcf(trio: SynthTrio, path: str) -> str:
-    """Planted-truth VCFv4.2 of the trio's de novo SNVs, the same text the JAX package's
-    ``write_truth_vcf`` writes uncompressed. REF from the shared reference, ALT from
-    whichever child haplotype diverges at the planted position."""
+def write_truth_vcf(trio: SynthTrio, path: str, bgzf: bool = False) -> str:
+    """Planted-truth VCF of the trio's de novo SNVs (io.vcf writer): the ground-truth
+    artifact a caller's candidates are evaluated against. REF from the shared reference,
+    ALT from whichever child haplotype diverges at the planted position."""
+    from denovo_kmer_tpu_torch.io.vcf import VcfRecord, write_vcf
+
     h1, h2 = trio.haplotypes["child"]
-    name = trio.spec.ref_name
-    lines = [
-        "##fileformat=VCFv4.2",
-        f"##contig=<ID={name},length={trio.spec.genome_len}>",
-        "\t".join(["#CHROM", "POS", "ID", "REF", "ALT", "QUAL", "FILTER", "INFO",
-                   "FORMAT", "child"]),
-    ]
+    recs = []
     for p in sorted(trio.denovo_positions):
         ref = trio.reference[p]
         alt = h1[p] if h1[p] != ref else h2[p]
-        lines.append("\t".join([name, str(p + 1), ".", ref, alt, ".", "PASS", "DENOVO",
-                                "GT", "0/1"]))
-    with open(path, "wb") as f:
-        f.write(("\n".join(lines) + "\n").encode("ascii"))
+        recs.append(VcfRecord(
+            chrom=trio.spec.ref_name, pos=p + 1, id=".", ref=ref, alts=[alt],
+            qual=None, filter="PASS", info={"DENOVO": True},
+            format=["GT"], samples=[{"GT": "0/1"}],
+        ))
+    write_vcf(path, recs, contigs=[(trio.spec.ref_name, trio.spec.genome_len)],
+              samples=["child"], bgzf=bgzf)
     return path

@@ -301,12 +301,14 @@ def run_trio_spill_sharded(mom_path: str, dad_path: str, child_path: str,
 
 
 def count_passes_from_spill(engine: ShardedKmerEngine, sp, stores, n_passes: int, n_chunks,
-                            metrics: Metrics):
-    """Per-pass counting from the per-shard stores: fold each sample's pass-``p`` rows
-    through the engine's route + aggregate, finalize the parents, seed and fold the child's
-    score table, and run the fused finalize + call. ``stores``: {mom/dad/child: (rows, fill,
-    fills)}; ``n_chunks(fills, p)``: the chunk count of one pass. Returns (sorted candidate
-    tuples, tables_n)."""
+                            metrics: Metrics, replicated_fetch: bool = False):
+    """Per-pass counting from the per-shard stores, shared by the sharded and the
+    multi-process spill: fold each sample's pass-``p`` rows through the engine's route +
+    aggregate, finalize the parents, seed and fold the child's score table, and run the
+    fused finalize + call. ``stores``: {mom/dad/child: (rows, fill, fills)};
+    ``n_chunks(fills, p)``: the chunk count of one pass (the two callers index their fills
+    differently). ``replicated_fetch``: multi-process mode (host values reduced over the
+    ranks). Returns (sorted candidate tuples, tables_n)."""
     m = metrics
     acc0, _ = engine.new_acc_state()  # pending=0 never reads it
     all_cands = []
@@ -320,7 +322,8 @@ def count_passes_from_spill(engine: ShardedKmerEngine, sp, stores, n_passes: int
                 for ci in range(n_chunks(fills, p)):
                     tab, ovf = sp.fold(rows, fill, tab, ovf, p, ci * sp.chunk_rows)
                 ptabs[name] = engine.finalize(
-                    ShardedBuildState(acc=acc0, ovf=ovf, table=tab, pending=0))
+                    ShardedBuildState(acc=acc0, ovf=ovf, table=tab, pending=0),
+                    replicated_fetch=replicated_fetch)
                 tables_n[name] += engine.total_unique(ptabs[name])
             rows, fill, fills = stores["child"]
             stab, ovf = engine.seed_score(ptabs["mom"], ptabs["dad"]), engine.zeros_ovf()
@@ -328,7 +331,8 @@ def count_passes_from_spill(engine: ShardedKmerEngine, sp, stores, n_passes: int
                 stab, ovf = sp.fold(rows, fill, stab, ovf, p, ci * sp.chunk_rows)
         with m.timer("trio_call"):
             cand_tuples, child_uniques = engine.finalize_call_score(
-                ShardedBuildState(acc=acc0, ovf=ovf, table=stab, pending=0))
+                ShardedBuildState(acc=acc0, ovf=ovf, table=stab, pending=0),
+                replicated_fetch=replicated_fetch)
         tables_n["child"] += child_uniques
         all_cands.extend(cand_tuples)
         m.event("pass_done", pass_id=p, candidates=len(cand_tuples))

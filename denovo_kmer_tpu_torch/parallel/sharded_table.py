@@ -27,6 +27,13 @@ run once a shard, and the collectives between them are ``mesh.all_to_all`` / ``p
   of them equal v4's uint32 group sums, which ``call_rows`` computes for every R, so none of
   those branches exists here. Even k (``2k % 32 == 0``) takes the compacting fallback.
 
+Several processes (``parallel/multihost.py``): each rank runs the per-shard bodies of its own
+cells only (the others hold ``None``), feeds its own share of every batch
+(``put_batch`` splits it over its local shards), and the collectives cross ranks through
+``torch.distributed``. Every host-side decision value (overflow, sizes, candidates) is then
+reduced or gathered over the ranks (``replicated_fetch=True``, as in JAX), so every rank
+returns the same candidates; ``save_table`` is collective and only the ``write`` rank writes.
+
 Exactness: the router never drops k-mers silently — dispatch overflow is counted, summed over
 the mesh and checked host-side (``RouteOverflowError``; the pipelines retry with a larger
 capacity factor). Table overflow is sticky from window to finalize.
@@ -71,7 +78,10 @@ from denovo_kmer_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather,
     all_to_all,
+    gather_cells,
+    gather_objects,
     psum,
+    reduce_host,
 )
 from denovo_kmer_tpu_torch.parallel.router import bucketize, owner_of, pass_of, route_capacity
 
@@ -131,21 +141,36 @@ class ShardedKmerEngine:
 
     @property
     def feed_device(self) -> torch.device:
-        """Where a batch lands before it splits over the shards: the first mesh device."""
-        return self.mesh.device(0, 0)
+        """Where a batch lands before it splits over the shards: this process's first mesh
+        device."""
+        return self.mesh.device(*self.mesh.local_cells()[0])
 
     def _grid(self, fn) -> list:
-        """``[[fn(r, t, device of (r, t)) for t] for r]``."""
-        return [[fn(r, t, self.mesh.device(r, t)) for t in range(self.T)]
-                for r in range(self.R)]
+        """``[[fn(r, t, device of (r, t)) for t] for r]`` over this process's cells; None
+        on the others."""
+        return [[fn(r, t, self.mesh.device(r, t)) if self.mesh.is_local(r, t) else None
+                 for t in range(self.T)] for r in range(self.R)]
+
+    def _local(self, grid) -> list:
+        """The entries of this process's cells."""
+        return [grid[r][t] for r, t in self.mesh.local_cells()]
+
+    def _reduce(self, xs, op: str) -> int:
+        """Max or sum of 0-dim tensors of this process's cells, over every rank."""
+        dev = self.feed_device
+        x = torch.stack([v.to(dev) for v in xs])
+        return reduce_host(self.mesh, int(x.max() if op == "max" else x.sum()), op)
 
     def _max_n(self, tables) -> int:
-        dev = self.feed_device
-        return int(torch.stack([tab.n.to(dev) for row in tables for tab in row]).max())
+        return self._reduce([tab.n for tab in self._local(tables)], "max")
 
     def _sum_n(self, tables) -> int:
-        dev = self.feed_device
-        return int(torch.stack([tab.n.to(dev) for row in tables for tab in row]).sum())
+        return self._reduce([tab.n for tab in self._local(tables)], "sum")
+
+    def _needs_replicated(self, replicated_fetch: bool) -> None:
+        if self.mesh.spans_processes and not replicated_fetch:
+            raise ValueError("a mesh that spans processes needs replicated_fetch=True: "
+                             "shard (0, 0) may belong to another rank")
 
     def _route_window(self, accs):
         """Bucket every shard's staged window by owner shard and exchange the buckets over
@@ -154,9 +179,9 @@ class ShardedKmerEngine:
         T, W, cap = self.T, self.W, self.route_cap
         parts = self._grid(lambda r, t, d: bucketize(
             accs[r][t].kmers, staged_valid(accs[r][t]), T, cap))
-        recv = all_to_all(self.mesh, [[p[0] for p in row] for row in parts])
-        rmask = all_to_all(self.mesh, [[p[1] for p in row] for row in parts])
-        ovf = psum(self.mesh, [[p[3] for p in row] for row in parts])
+        recv = all_to_all(self.mesh, _field(parts, 0))
+        rmask = all_to_all(self.mesh, _field(parts, 1))
+        ovf = psum(self.mesh, _field(parts, 3))
         routed = self._grid(lambda r, t, d: (recv[r][t].reshape(-1, W),
                                              rmask[r][t].reshape(-1)))
         return routed, ovf
@@ -181,7 +206,11 @@ class ShardedKmerEngine:
 
     def _extract(self, acc: KmerAccumulator, block, pass_id: int) -> KmerAccumulator:
         """Append one shard's block of a batch to its staging buffer. The extraction width
-        comes from the batch shape (length-bucketed batches arrive narrower)."""
+        comes from the batch shape (length-bucketed batches arrive narrower). A ``None``
+        block is a multi-process padding step (``distributed.make_global_batch`` of an empty
+        batch): it holds no read, so nothing is staged."""
+        if block is None:
+            return acc
         words, vwords, lengths = block
         eff_len = min(words.shape[1] * 16, self.cfg.max_read_len)
         return extract_append(acc, words, vwords, lengths, self.cfg.k, eff_len,
@@ -224,9 +253,10 @@ class ShardedKmerEngine:
             state = self.flush(state)
         return state
 
-    def _check_route(self, state: ShardedBuildState) -> None:
+    def _check_route(self, state: ShardedBuildState, replicated_fetch: bool = False) -> None:
         # every shard holds the global total (the route psums over both axes)
-        ovf_val = int(state.ovf[0][0])
+        self._needs_replicated(replicated_fetch)
+        ovf_val = self._reduce(self._local(state.ovf), "max")
         if ovf_val:
             raise RouteOverflowError(
                 f"{ovf_val} k-mers overflowed route capacity {self.route_cap}; "
@@ -237,10 +267,9 @@ class ShardedKmerEngine:
         """Per shard: its column's R row partials gathered over the reads axis, flattened
         to (keys (R·C, W), [weight columns], valid (R·C,))."""
         C, R, W = self.shard_capacity, self.R, self.W
-        cols = ["counts", "pcounts"] if isinstance(tables[0][0], ScoreTable) else ["counts"]
-        g = {name: all_gather(self.mesh, [[getattr(tab, name) for tab in row]
-                                          for row in tables])
-             for name in ["keys", "n"] + cols}
+        scored = isinstance(self._local(tables)[0], ScoreTable)
+        cols = ["counts", "pcounts"] if scored else ["counts"]
+        g = {name: all_gather(self.mesh, _attr(tables, name)) for name in ["keys", "n"] + cols}
 
         def one(r, t, d):
             n_all = g["n"][r][t]
@@ -301,7 +330,7 @@ class ShardedKmerEngine:
                 return disp, mask.sum(dim=1), acc._replace(fill=0), ovf[r][t] + o
 
             parts = self._grid(one)
-            return tuple([[p[i] for p in row] for row in parts] for i in range(4))
+            return tuple(_field(parts, i) for i in range(4))
 
         def append(rows, fill, disp, counts):
             def one(r, t, d):
@@ -359,8 +388,10 @@ class ShardedKmerEngine:
     def put_batch(self, packed) -> list:
         """A batch's per-shard blocks ``(words, vwords, lengths)`` on each shard's device:
         block ``r·T + t`` of ``batch_reads / (R·T)`` reads. Prefix-valid batches ship
-        lengths (``vwords`` None); the others their validity words."""
-        n_dev = self.R * self.T
+        lengths (``vwords`` None); the others their validity words. On a mesh that spans
+        processes ``packed`` is this rank's share, split over its own cells in order."""
+        cells = self.mesh.local_cells()
+        n_dev = len(cells)
 
         def tensor(a):
             return a if isinstance(a, torch.Tensor) else as_int32_tensor(np.asarray(a))
@@ -379,7 +410,8 @@ class ShardedKmerEngine:
             vwords, lens = tensor(packed.vwords), None
 
         def block(r, t, d):
-            sl = slice((r * self.T + t) * lr, (r * self.T + t + 1) * lr)
+            i = cells.index((r, t))
+            sl = slice(i * lr, (i + 1) * lr)
             return (words[sl].to(d, non_blocking=True),
                     None if vwords is None else vwords[sl].to(d, non_blocking=True),
                     None if lens is None else lens[sl].to(d, non_blocking=True))
@@ -398,11 +430,13 @@ class ShardedKmerEngine:
     ingest_score_global = ingest_global
     flush_score = flush
 
-    def finalize(self, state: ShardedBuildState) -> list:
-        """Route the remainder, check the overflow, fold the row partials."""
+    def finalize(self, state: ShardedBuildState, replicated_fetch: bool = False) -> list:
+        """Route the remainder, check the overflow, fold the row partials.
+        ``replicated_fetch`` reduces the host-checked values over the ranks first: required
+        when the mesh spans processes."""
         if state.pending:
             state = self.flush(state)
-        self._check_route(state)
+        self._check_route(state, replicated_fetch)
         table = self._finalize_tables(state.table)
         n_max = self._max_n(table)
         if n_max > self.shard_capacity:
@@ -416,20 +450,37 @@ class ShardedKmerEngine:
 
     def table_arrays(self, table) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Row 0 of an engine-layout table on the host (rows are replicas after finalize):
-        uint32 keys (T, C, W), uint32 counts (T, C), int32 n (T,)."""
-        row = table[0]
-        return (np.stack([tab.keys.cpu().numpy() for tab in row]).astype(np.uint32),
-                np.stack([tab.counts.cpu().numpy() for tab in row]).astype(np.uint32),
-                np.array([int(tab.n) for tab in row], dtype=np.int32))
+        uint32 keys (T, C, W), uint32 counts (T, C), int32 n (T,). Collective when the mesh
+        spans processes: every rank gets the whole row."""
+        cells = [(0, t) for t in range(self.T)]
+
+        def row(name):
+            got = gather_cells(self.mesh, _attr(table, name), cells)
+            return [got[c].cpu().numpy() for c in cells]
+
+        return (np.stack(row("keys")).astype(np.uint32),
+                np.stack(row("counts")).astype(np.uint32),
+                np.array([int(x) for x in row("n")], dtype=np.int32))
 
     def save_table(self, path: str, table, source: Optional[str] = None,
-                   backend: str = "npz") -> None:
+                   write: bool = True, backend: str = "npz") -> None:
         """Persist a finalized sharded table in the JAX engine's layout: one npz with
-        ``keys`` (T, C, W), ``counts`` (T, C), ``n`` (T,) and the JSON ``meta``."""
-        if backend != "npz":
-            raise NotImplementedError(
-                f"backend={backend!r} is not yet ported: the orbax directory comes with the "
-                "multi-process slice (ROADMAP.md); use backend='npz'")
+        ``keys`` (T, C, W), ``counts`` (T, C), ``n`` (T,) and the JSON ``meta``
+        (``backend="orbax"``: the orbax directory of ``utils/checkpoint_orbax.py``).
+
+        Collective when the mesh spans processes: every rank calls it with the same table
+        and the table is gathered; only the rank given ``write=True`` writes (pass
+        ``write=rank == 0``)."""
+        _check_backend(backend)
+        if backend == "orbax":
+            from denovo_kmer_tpu_torch.utils.checkpoint_orbax import save_table_orbax
+
+            save_table_orbax(path, self.engine_arrays(table), self.cfg, source=source,
+                             write=write)
+            return
+        keys, counts, n = self.table_arrays(table)
+        if not write:
+            return
         meta = {
             "format_version": 1,
             "config_hash": self.cfg.config_hash(),
@@ -438,13 +489,22 @@ class ShardedKmerEngine:
             "words": self.W,
             "source": source,
         }
-        keys, counts, n = self.table_arrays(table)
         np.savez_compressed(path, keys=keys, counts=counts, n=n,
                             meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
 
+    def engine_arrays(self, table) -> dict:
+        """The JAX engine's global arrays of a finalized table: keys (R, T, C, W), counts
+        (R, T, C), n (R, T), rows replicated (collective, like ``table_arrays``)."""
+        keys, counts, n = self.table_arrays(table)
+        R = self.R
+        return {"keys": np.broadcast_to(keys[None], (R,) + keys.shape),
+                "counts": np.broadcast_to(counts[None], (R,) + counts.shape),
+                "n": np.broadcast_to(n[None], (R,) + n.shape)}
+
     def place_arrays(self, keys: np.ndarray, counts: np.ndarray, n: np.ndarray) -> list:
         """An engine-layout table from host (T, C, W) keys, (T, C) counts and (T,) n: shard
-        t on every row of column t (replicated rows, the finalize invariant)."""
+        t on every row of column t (replicated rows, the finalize invariant); each process
+        places its own cells only."""
         def one(r, t, d):
             return KmerTable(
                 keys=torch.from_numpy(np.asarray(keys[t], np.uint32).astype(np.int64)).to(d),
@@ -455,13 +515,20 @@ class ShardedKmerEngine:
 
     def load_table(self, path: str, backend: str = "npz") -> list:
         """Load an engine-layout checkpoint; validates the semantics hash and the shard
-        geometry."""
+        geometry. Each process places its own cells."""
         from denovo_kmer_tpu_torch.utils.checkpoint import CheckpointError
 
-        if backend != "npz":
-            raise NotImplementedError(
-                f"backend={backend!r} is not yet ported: the orbax directory comes with the "
-                "multi-process slice (ROADMAP.md); use backend='npz'")
+        _check_backend(backend)
+        if backend == "orbax":
+            from denovo_kmer_tpu_torch.utils.checkpoint_orbax import load_arrays_orbax
+
+            arrs = load_arrays_orbax(path, self.cfg)
+            want = (self.R, self.T, self.shard_capacity, self.W)
+            if tuple(arrs["keys"].shape) != want:
+                raise CheckpointError(f"shard geometry mismatch: saved keys "
+                                      f"{tuple(arrs['keys'].shape)}, engine {want}")
+            # rows are replicas (the finalize invariant): row 0 places every row
+            return self.place_arrays(arrs["keys"][0], arrs["counts"][0], arrs["n"][0])
         with np.load(path) as z:
             meta = json.loads(bytes(z["meta"]).decode())
             keys, counts, n = z["keys"], z["counts"], z["n"]
@@ -527,24 +594,25 @@ class ShardedKmerEngine:
         return ShardedBuildState(acc=acc, ovf=ovf, table=self.seed_score(mom, dad),
                                  pending=0)
 
-    def finalize_score(self, state: ShardedBuildState) -> list:
+    def finalize_score(self, state: ShardedBuildState, replicated_fetch: bool = False) -> list:
         if state.pending:
             state = self.flush_score(state)
-        self._check_route(state)
+        self._check_route(state, replicated_fetch)
         stab = self._finalize_tables(state.table)
         n_max = self._max_n(stab)
         if n_max > self.shard_capacity:
             raise RuntimeError(_sharded_overflow_msg(n_max, self.shard_capacity))
         return stab
 
-    def finalize_call_score(self, state: ShardedBuildState):
+    def finalize_call_score(self, state: ShardedBuildState, replicated_fetch: bool = False):
         """Fused finalize + candidate call over the scored build state: per shard, one key
         sort of the gathered row partials and exact group sums (``ops/fused.call_rows``).
-        Returns (candidate tuples sorted by k-mer value, n_child_unique). Even k
-        (padding-key collision) falls back to ``finalize_score`` + ``call_score``."""
+        Returns (candidate tuples sorted by k-mer value, n_child_unique), the same on every
+        rank. Even k (padding-key collision) falls back to ``finalize_score`` +
+        ``call_score``."""
         if state.pending:
             state = self.flush_score(state)
-        self._check_route(state)
+        self._check_route(state, replicated_fetch)
         n_max = self._max_n(state.table)
         if n_max > self.shard_capacity:
             raise RuntimeError(_sharded_overflow_msg(n_max, self.shard_capacity))
@@ -555,8 +623,9 @@ class ShardedKmerEngine:
             n_fold = self._max_n(stab)
             if n_fold > self.shard_capacity:
                 raise RuntimeError(_sharded_overflow_msg(n_fold, self.shard_capacity))
-            nchild = sum(int((tab.counts >= 1).sum()) for row in stab for tab in row)
-            return self.call_score(stab), nchild // self.R
+            nchild = self._reduce([(tab.counts >= 1).sum() for tab in self._local(stab)],
+                                  "sum")
+            return self.call_score(stab, replicated_fetch), nchild // self.R
 
         cfg = self.cfg
         W = self.W
@@ -569,15 +638,26 @@ class ShardedKmerEngine:
 
         g = self._gathered(state.table)
         res = self._grid(lambda r, t, d: call(*g[r][t]))
-        nchild = sum(int(x[5]) for row in res for x in row)
-        return _tuples(res[0]), nchild // self.R
+        nchild = self._reduce([torch.as_tensor(x[5]) for x in self._local(res)], "sum")
+        return self._row0_tuples(res), nchild // self.R
 
-    def call_score(self, stab: list) -> List[Tuple[int, int, int, int]]:
+    def _row0_tuples(self, res) -> List[Tuple[int, int, int, int]]:
+        """Host tuples of row 0's per-shard candidate columns (rows are replicas), sorted by
+        k-mer value; on a mesh that spans processes each rank contributes the row-0 cells it
+        owns and every rank gets the union."""
+        mine = _tuples([res[0][t] for t in range(self.T) if self.mesh.is_local(0, t)])
+        out = [x for part in gather_objects(self.mesh, mine) for x in part]
+        out.sort()
+        return out
+
+    def call_score(self, stab: list,
+                   replicated_fetch: bool = False) -> List[Tuple[int, int, int, int]]:
         """Candidate call over a finalized sharded scoring table: host tuples sorted
-        ascending by k-mer value."""
+        ascending by k-mer value (the same on every rank)."""
+        self._needs_replicated(replicated_fetch)
         tau, minc = self.cfg.tau_parent, self.cfg.min_child_count
-        cands = self._grid(lambda r, t, d: call_from_score(stab[r][t], tau, minc))
-        return _tuples([_compacted(c) for c in cands[0]])
+        cands = self._grid(lambda r, t, d: _compacted(call_from_score(stab[r][t], tau, minc)))
+        return self._row0_tuples(cands)
 
     def total_unique(self, table: list) -> int:
         """Total uniques across shards (rows are replicas after finalize)."""
@@ -587,9 +667,24 @@ class ShardedKmerEngine:
         """The shard-local three-table call (``ops/trio.call_candidates``): host tuples
         sorted ascending by k-mer value."""
         tau, minc = self.cfg.tau_parent, self.cfg.min_child_count
-        cands = self._grid(lambda r, t, d: call_candidates(child[r][t], mom[r][t],
-                                                           dad[r][t], tau, minc))
-        return _tuples([_compacted(c) for c in cands[0]])
+        cands = self._grid(lambda r, t, d: _compacted(call_candidates(
+            child[r][t], mom[r][t], dad[r][t], tau, minc)))
+        return self._row0_tuples(cands)
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in ("npz", "orbax"):
+        raise ValueError(f"unknown checkpoint backend {backend!r}: 'npz' or 'orbax'")
+
+
+def _field(grid, i) -> list:
+    """Field ``i`` of every entry of a per-shard grid of tuples (None stays None)."""
+    return [[None if x is None else x[i] for x in row] for row in grid]
+
+
+def _attr(grid, name) -> list:
+    """Attribute ``name`` of every entry of a per-shard grid (None stays None)."""
+    return [[None if x is None else getattr(x, name) for x in row] for row in grid]
 
 
 def _compacted(c):

@@ -1103,9 +1103,10 @@ def candidate_words_from_tsv(path: str, cfg: EngineConfig) -> np.ndarray:
     return np.asarray(rows, np.uint32).reshape(len(rows), cfg.words)
 
 
-def candidate_table(words: np.ndarray, device="cpu") -> KmerTable:
+def candidate_table(words: np.ndarray, device=None) -> KmerTable:
     """Small sorted membership table from (N, W) candidate rows, built on the host (N is
-    the candidate count, thousands at most; ``probe_table`` binary-searches it)."""
+    the candidate count, thousands at most; ``probe_table`` binary-searches it) and placed
+    on ``device`` (default the card)."""
     n, W = words.shape
     if n:
         order = np.lexsort(tuple(words[:, w] for w in range(W - 1, -1, -1)))
@@ -1119,7 +1120,8 @@ def candidate_table(words: np.ndarray, device="cpu") -> KmerTable:
     cap = max(1 << max(int(n - 1).bit_length(), 1), 2)
     keys = np.full((cap, W), 0xFFFFFFFF, np.uint32)
     keys[:n] = rows
-    return table_from_numpy(keys, (np.arange(cap) < n).astype(np.uint32), n, device)
+    return table_from_numpy(keys, (np.arange(cap) < n).astype(np.uint32), n,
+                            resolve_device(device))
 
 
 def candidate_read_batches(child_path: str, table: KmerTable, cfg: EngineConfig,

@@ -149,14 +149,18 @@ def test_candidate_table_matches_jax(trio, tmp_path):
     for path in (tsv, messy):
         words = candidate_words_from_tsv(path, EngineConfig(**CFG))
         np.testing.assert_array_equal(words, jax_candidate_words(path, JaxConfig(**CFG)))
-        got, want = candidate_table(words), jax_candidate_table(words)
+        got, want = candidate_table(words, "cpu"), jax_candidate_table(words)
         keys, counts, n = table_to_numpy(got)
         assert n == int(want.n)
         np.testing.assert_array_equal(keys, np.asarray(want.keys))
         np.testing.assert_array_equal(counts, np.asarray(want.counts))
     empty = np.zeros((0, 1), np.uint32)
-    assert table_to_numpy(candidate_table(empty))[0].shape == np.asarray(
+    assert table_to_numpy(candidate_table(empty, "cpu"))[0].shape == np.asarray(
         jax_candidate_table(empty).keys).shape
+    # like every entry point, it defaults to the card
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            candidate_table(empty)
 
 
 def test_sam_writer_and_source_header_match_jax(trio):
@@ -217,7 +221,7 @@ def test_one_extraction_a_batch(trio, monkeypatch):
 
     monkeypatch.setattr(extract, "append_plain", counted)
     cfg = EngineConfig(**CFG)
-    table = candidate_table(candidate_words_from_tsv(tsv, cfg))
+    table = candidate_table(candidate_words_from_tsv(tsv, cfg), "cpu")
     batches = list(candidate_read_batches(paths["child"], table, cfg))
     assert len(calls) == len(batches) > 1
     assert all(c == cfg.batch_reads for c in calls)

@@ -1,5 +1,5 @@
 """The PyTorch/CUDA port stands alone: no file of denovo_kmer_tpu_torch/ (nor chip_smoke.py)
-imports jax, jaxlib or the JAX package, importing the port loads none of them, and its C++
+imports jax, jaxlib, orbax or the JAX package, importing the port loads none of them, and its C++
 feeder is compiled from the port's own sources."""
 
 import ast
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "denovo_kmer_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "denovo_kmer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "denovo_kmer_tpu")
 
 SOURCES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
@@ -55,6 +55,10 @@ def test_import_loads_no_jax():
         "import denovo_kmer_tpu_torch.io.fqz, denovo_kmer_tpu_torch.io.fasta\n"
         "import denovo_kmer_tpu_torch.ops.join, denovo_kmer_tpu_torch.parallel.probe\n"
         "import denovo_kmer_tpu_torch.parallel.pipeline\n"
+        "import denovo_kmer_tpu_torch.parallel.multihost, denovo_kmer_tpu_torch.parallel.distributed\n"
+        "import denovo_kmer_tpu_torch.utils.checkpoint_orbax\n"
+        "import denovo_kmer_tpu_torch.io.vcf, denovo_kmer_tpu_torch.io.bcf\n"
+        "import denovo_kmer_tpu_torch.io.tabix\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

@@ -299,8 +299,10 @@ def test_place_flat_table_from_a_count_checkpoint(tmp_path):
     pt = peng.place_flat_table(load_table(path, EngineConfig(**CFG), device="cpu"))
     jp, pp = _save_both(tmp_path, jeng, peng, jt, pt, "placed")
     _assert_same_npz(jp, pp)
-    with pytest.raises(NotImplementedError, match="multi-process slice"):
-        peng.save_table(str(tmp_path / "x"), pt, backend="orbax")
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        peng.save_table(str(tmp_path / "x"), pt, backend="zarr")
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        peng.load_table(pp, backend="zarr")
     # a flat table with more keys of one shard than the shard holds is refused
     small = ShardedKmerEngine(EngineConfig(**dict(CFG, table_capacity=256)),
                               make_mesh((1, 2), device="cpu"))
