@@ -153,9 +153,25 @@ each printed as one JSON line:
               demand (windows / device-busy seconds), the figure behind the CLI's
               `doctor --probe-feed` default.
 
+11. library — the JAX package's library calls at phase 4's BAMs and config:
+              ops/extract_fast.extract_canonical_kmers_fast on one child batch (16,384
+              reads, with Ns) at k=31 and k=41 and not canonical, one extraction launch a
+              call, valid masks equal to the plain version's and keys equal where valid
+              (keys of invalid windows are unspecified: how many differ is printed), each
+              call timed beside the plain version; build_sample_table(mom, step=
+              SampleTableBuilder(cfg)) equal to the numpy reference; ScoringTableBuilder.build
+              (the compacting child build) and call_from_score: phase 4's candidates; on the
+              final window of the child's fused lane with max_candidates=1,
+              fused_flush_call + extract_candidates raises CandidateOverflowError,
+              fused_call_candidates gives phase 4's candidates and unpack_fused the compacting
+              build's n_unique and n_child_unique; ingest_batch and merge_score_tables (at the
+              table capacity, and overflowing) equal on the card and on the CPU; empty_table,
+              table_from_numpy, empty_score_table, score_table_from_numpy,
+              empty_accumulator and empty_pass_store without a device allocate on the card.
+
 BAMs store reverse-strand reads in reference orientation at the position of their first
 stored base, as an aligner does; canonical counting does not see the strand. Each path of
-phases 4 to 10 runs with every kernel's launch count set to 0 just before it and read just
+phases 4 to 11 runs with every kernel's launch count set to 0 just before it and read just
 after; the counts come from those runs alone (the block sort is a probe that no path
 launches). Then a ``kernels`` line (one entry per kernel), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -2739,6 +2755,184 @@ def phase_table_tools(work, main):
     return out
 
 
+# ---------------------------------------------------------------------------------------
+# phase 11: the JAX package's library surface, on phase 4's BAMs and config
+# ---------------------------------------------------------------------------------------
+
+def _tuples(cands):
+    """(value, child, mom, dad) tuples of ``Candidates``, as TrioResult.candidates."""
+    from denovo_kmer_tpu_torch.oracle.scalar import words_to_kmer_value
+    from denovo_kmer_tpu_torch.pipeline import _candidate_parts
+
+    keys, cc, mc, dc = _candidate_parts(cands)
+    return [(words_to_kmer_value(keys[i]), int(cc[i]), int(mc[i]), int(dc[i]))
+            for i in range(keys.shape[0])]
+
+
+def _same_tensors(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def phase_library(main):
+    """The library calls of the JAX package on the card at phase 4's width: (a) the
+    standalone extraction on one child batch at k = 31 and 41, and not canonical, against
+    the plain version (one launch a call, timed); (b) build_sample_table with a
+    SampleTableBuilder step equals phase 4's mom table; (c) ScoringTableBuilder.build (the
+    compacting child build) and call_from_score give phase 4's candidates; (d) on the final
+    window of the child, with K = 1: fused_flush_call overflows in extract_candidates,
+    fused_call_candidates gives phase 4's candidates, unpack_fused reads (c)'s n_unique and
+    n_child_unique; (e) ingest_batch and merge_score_tables on the card equal the CPU;
+    (f) the public constructors without a device allocate on the card."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+    from denovo_kmer_tpu_torch.io.prefetch import as_int32_tensor
+    from denovo_kmer_tpu_torch.ops import extract_fast, fused, score, spill, stream, table
+    from denovo_kmer_tpu_torch.ops.extract import extract_canonical_kmers
+    from denovo_kmer_tpu_torch.pipeline import (
+        SampleTableBuilder,
+        ScoringTableBuilder,
+        _fold_placed,
+        build_sample_table,
+        packed_batches,
+    )
+    from denovo_kmer_tpu_torch.utils.metrics import Metrics
+
+    cfg = EngineConfig(**MAIN_CFG)
+    dev = torch.device("cuda")
+    paths, ref, want = main["paths"], main["ref"], main["candidates"]
+    out, wall, launches = {"phase": "library"}, {}, {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        launches[name] = read_launches()
+        return res
+
+    # (a) one full child batch (it holds Ns), its validity words on the card
+    t0 = time.perf_counter()
+    batch = next(iter(packed_batches(paths["child"], cfg)))
+    words = as_int32_tensor(batch.words).to(dev)
+    vwords = as_int32_tensor(batch.vwords).to(dev)
+    B, Lw = words.shape
+    cases = []
+    for k, canonical in ((K, True), (41, True), (K, False)):
+        args = (words, vwords, k, cfg.max_read_len, canonical)
+        name = f"extract_fast_k{k}" + ("" if canonical else "_forward")
+        kmers, valid = counted(name, lambda: extract_fast.extract_canonical_kmers_fast(*args))
+        if launches[name]["extract_kmers"] != 1:
+            raise AssertionError(f"{name}: {launches[name]} launches, 1 extraction expected")
+        pk, pv = extract_canonical_kmers(*args)
+        if not torch.equal(valid, pv):
+            raise AssertionError(f"{name}: valid differs from the plain version")
+        err = int((kmers[pv] - pk[pv]).abs().max()) if pv.any() else 0
+        if err:
+            raise AssertionError(f"{name}: keys differ at valid windows, max_abs_err={err}")
+        nbytes, ops = extraction_bytes_ops(B, Lw, k, cfg.max_read_len, canonical, True)
+        bound_ms, bound_by = bound(nbytes, ops)
+        cases.append(dict(
+            k=k, canonical=canonical, B=B, windows=int(pv.numel()), valid=int(pv.sum()),
+            max_abs_err=err, launches=launches[name]["extract_kmers"],
+            # keys of invalid windows are unspecified; how many differ is reported
+            invalid_keys_differing=int((kmers != pk).any(dim=-1)[~pv].sum()),
+            ms=cuda_ms(lambda: extract_fast.extract_canonical_kmers_fast(*args)),
+            plain_ms=cuda_ms(lambda: extract_canonical_kmers(*args)),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops))
+        del kmers, valid, pk, pv
+    out["extract_fast"] = cases
+    wall["extract_fast_all"] = time.perf_counter() - t0
+
+    # (b) build_sample_table with a builder as its step, (c) the compacting child build
+    mom = counted("build_sample_table_step", lambda: build_sample_table(
+        paths["mom"], cfg, step=SampleTableBuilder(cfg)))
+    n_mom = check_table(mom, ref["mom"][0], ref["mom"][1], ref["mom"][2],
+                        cfg.table_capacity, "mom (build_sample_table step=)")
+    dad = counted("build_dad", lambda: build_sample_table(paths["dad"], cfg))
+    scored = counted("scoring_build", lambda: ScoringTableBuilder(cfg).build(
+        mom, dad, packed_batches(paths["child"], cfg)))
+    got = _tuples(score.call_from_score(scored, cfg.tau_parent, cfg.min_child_count))
+    if got != want:
+        raise AssertionError(f"ScoringTableBuilder.build: {len(got)} candidates, phase 4 "
+                             f"{len(want)}")
+    n_union = int(scored.n)
+    n_child = int((scored.counts[:n_union] >= 1).sum())
+    for name, n_batches in (("build_sample_table_step", main["batches"] // 3),
+                            ("scoring_build", main["batches"] // 3)):
+        if launches[name]["extract_kmers"] != n_batches:
+            raise AssertionError(f"{name}: {launches[name]} launches for {n_batches} batches")
+
+    # (d) the final window of the child's fused lane, with a capacity of one candidate
+    def final_window():
+        lane = ScoringTableBuilder(cfg).call_lane(mom, dad)
+        _fold_placed(packed_batches(paths["child"], cfg), cfg, dev, [lane], Metrics())
+        return lane
+
+    lane = counted("final_window", final_window)
+    tab = lane.state[0]
+    args = (lane.acc, tab, cfg.tau_parent, cfg.min_child_count)
+    t0 = time.perf_counter()
+    packed = fused.fused_flush_call(*args, max_candidates=1)
+    try:
+        fused.extract_candidates(packed)
+        raise AssertionError("extract_candidates took more candidates than K = 1")
+    except fused.CandidateOverflowError:
+        pass
+    head = fused.unpack_fused(packed)
+    if (head.n_cand, head.n_unique, head.n_child_unique) != (len(want), n_union, n_child):
+        raise AssertionError(f"unpack_fused read {head[:3]}, the compacting build "
+                             f"{(len(want), n_union, n_child)}")
+    if _tuples(fused.fused_call_candidates(*args, max_candidates=1)) != want:
+        raise AssertionError("fused_call_candidates differs from phase 4's candidates")
+    wall["fused_protocol"] = time.perf_counter() - t0
+    del lane, packed, tab, args
+
+    # (e) the same calls on the card and on the CPU
+    t0 = time.perf_counter()
+    kmers, valid = extract_fast.extract_canonical_kmers_fast(words, vwords, K,
+                                                             cfg.max_read_len)
+    on_card = table.ingest_batch(mom, kmers, valid, 1 << 22)
+    on_cpu = table.ingest_batch(table.KmerTable(*(t.cpu() for t in mom)), kmers.cpu(),
+                                valid.cpu(), 1 << 22)
+    if not _same_tensors(on_card, on_cpu):
+        raise AssertionError("ingest_batch: the card and the CPU differ")
+    card_vs_cpu = {"ingest_batch_n": int(on_card.n)}
+    del kmers, valid, on_card, on_cpu
+    scored_cpu = score.ScoreTable(*(t.cpu() for t in scored))
+    for cap in (cfg.table_capacity, n_union // 2):
+        on_card = score.merge_score_tables(scored, scored, cap)
+        on_cpu = score.merge_score_tables(scored_cpu, scored_cpu, cap)
+        if not _same_tensors(on_card, on_cpu):
+            raise AssertionError(f"merge_score_tables at capacity {cap}: the card and the CPU "
+                                 "differ")
+        card_vs_cpu[f"merge_score_tables_n_at_{cap}"] = int(on_card.n)
+    if card_vs_cpu[f"merge_score_tables_n_at_{n_union // 2}"] <= n_union // 2:
+        raise AssertionError("merge_score_tables: the overflow did not stick")
+    del on_card, on_cpu, scored_cpu
+    wall["card_vs_cpu"] = time.perf_counter() - t0
+
+    # (f) constructors without a device
+    zeros = np.zeros((8, 2), np.uint32)
+    made = {
+        "empty_table": table.empty_table(8, 2).keys,
+        "table_from_numpy": table.table_from_numpy(zeros, zeros[:, 0], 0).keys,
+        "empty_score_table": score.empty_score_table(8, 2).keys,
+        "score_table_from_numpy": score.score_table_from_numpy(zeros, zeros[:, 0],
+                                                               zeros[:, 0], 0).keys,
+        "empty_accumulator": stream.empty_accumulator(8, 2).kmers,
+        "empty_pass_store": spill.empty_pass_store(2, 8, 2).rows,
+    }
+    out["default_device"] = {name: str(t.device) for name, t in made.items()}
+    if any(t.device.type != "cuda" for t in made.values()):
+        raise AssertionError(f"a constructor left the card: {out['default_device']}")
+
+    out.update(mom_n=n_mom, union_n=n_union, child_n=n_child, candidates=len(want),
+               card_vs_cpu=card_vs_cpu, launches=launches, wall_s=wall)
+    emit(out)
+    return out
+
+
 def device_time(prof, trace_path, wall_s):
     """Device activity of a profiled run, from its Chrome trace: busy seconds (the union of
     every kernel, copy and memset interval), summed seconds by kind and for the costliest
@@ -2843,6 +3037,7 @@ def main() -> int:
             sharded = phase_sharded(main_run)
             multihost = phase_multihost(work, main_run)
             phase_table_tools(work, main_run)
+            library = phase_library(main_run)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2863,7 +3058,9 @@ def main() -> int:
                "run_trio_npz": ckpt["run_trio_npz"]["launches"],
                "count_mom": ckpt["count_mom"]["launches"],
                "sweep": sweep["launches"], "cohort": cohort["launches"],
-               **evidence["launches"], **inputs}
+               **evidence["launches"], **inputs,
+               **{f"library_{name}": v for name, v in library["launches"].items()}}
+    standalone = library["extract_fast"][0]  # k=31, canonical
     emit({"kernels": [{
         "name": "extract_kmers", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",
@@ -2881,8 +3078,14 @@ def main() -> int:
         "launches_by_path": {name: v["extract_kmers"] for name, v in by_path.items()},
         "sharded_launch": {key: shard_case[key] for key in
                            ("B", "ms", "plain_ms", "bound_ms", "bound_by", "store_floor_ms")},
+        "standalone_launch": {key: standalone[key] for key in
+                              ("B", "k", "launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "invalid_keys_differing")},
         "shape": "B=16384 max_read_len=160 k=31 canonical; launches: run_trio_sharded on a "
-                 "2x4 mesh of one card, B=2048 a launch"}, {
+                 "2x4 mesh of one card, B=2048 a launch; standalone_launch: "
+                 "ops/extract_fast.extract_canonical_kmers_fast on one child batch, the "
+                 "whole call (allocation, launch, int64 widening) against the plain version"},
+        {
         "name": "radix_partition", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/radix_partition.cu",
         "replaces": "denovo_kmer_tpu/ops/partition_pallas.py:125",

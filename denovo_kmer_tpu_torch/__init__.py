@@ -8,7 +8,7 @@ the caller passes ``device="cpu"``.
 - ``io/``       host feeder: BGZF/BAM/FASTA decode, synthetic trios, device placement
 - ``ops/``      device compute: extraction (``csrc/extract_kmers.cu``), tables, scoring,
   the fused trio call, the multipass spill (partition kernel ``csrc/radix_partition.cu``)
-- ``parallel/`` the hash router (pass and shard buckets)
+- ``parallel/`` the hash router, the device mesh, the sharded engine and multi-process runs
 - ``oracle/``   scalar ground truth for SPEC_SEMANTICS.md
 - ``pipeline``  end-to-end orchestration and candidate evidence; ``cohort`` multi-k sweeps
   and cohort mode; ``sites`` candidate-site grouping; ``cli`` the user entry point

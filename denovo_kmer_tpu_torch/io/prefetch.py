@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from denovo_kmer_tpu_torch.ops.pack import PackedReads
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 T = TypeVar("T")
 
@@ -177,19 +178,25 @@ def as_int32_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def prefetch_placed(batches: Iterable[T], device, depth: int = 2,
-                    decode_depth: int = 2, ship_lengths: bool = False,
-                    stats: dict = None) -> Iterator[T]:
+def prefetch_placed(batches: Iterable[T], device=None, depth: int = 2,
+                    decode_depth: int = 2, put: Callable = None,
+                    ship_lengths: bool = False, stats: dict = None) -> Iterator[T]:
     """Three-thread host→device pipeline: decode/pack on one daemon thread, host→device
     transfer on a second (a side CUDA stream), compute dispatch on the caller's thread.
-    Items are PackedReads, bare or inside tuples (``_place_item``).
+    Items are PackedReads, bare or inside tuples (``_place_item``), placed on ``device``
+    (``None``: the card).
 
-    ``stats`` track the consumer-facing stage; a leaked decode thread (the one inside the
-    caller's stream) is reported there too, for ``close_unless_leaked``."""
-    device = torch.device(device)
+    ``put`` overrides the placement: each host array of a batch becomes ``put(array)``
+    (``device`` is then unused), and the caller orders the copies it makes. ``stats`` track
+    the consumer-facing stage; a leaked decode thread (the one inside the caller's stream)
+    is reported there too, for ``close_unless_leaked``."""
+    device = None if put is not None else resolve_device(device)
     inner_stats: dict = {}
     inner = prefetch_batches(batches, depth=decode_depth, stats=inner_stats)
-    if device.type == "cuda":
+    if put is not None:
+        def place(b):
+            return _place_item(b, put, ship_lengths), None
+    elif device.type == "cuda":
         side = torch.cuda.Stream(device=device)
 
         def put(a):

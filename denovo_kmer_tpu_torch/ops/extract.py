@@ -7,7 +7,8 @@ hand-written kernel ``csrc/extract_kmers.cu`` (which replaces the Pallas kernel
 plain version below. There is no fallback from one to the other.
 
 ``extract_canonical_kmers`` and ``vwords_from_lengths`` are the plain version: a
-line-for-line torch transcription of ``denovo_kmer_tpu/ops/extract_fast.py``. With
+line-for-line torch transcription of ``denovo_kmer_tpu/ops/extract_fast.py``
+(``ops/extract_fast.py`` is the standalone entry that launches the kernel on the card). With
 ``n_passes > 1`` both keep only windows whose ``router.pass_of`` bucket is ``pass_id``, the
 pass filter of the JAX multipass step. uint32 words
 are carried in int64 and masked with ``0xFFFFFFFF`` after every left shift (torch has no
@@ -51,6 +52,15 @@ def vwords_from_lengths(lengths: torch.Tensor, padded_len: int) -> torch.Tensor:
     base = torch.arange(V, dtype=torch.int64, device=lengths.device)[None, :] * 32
     rem = (lengths.to(torch.int64)[:, None] - base).clamp(0, 32)
     return torch.where(rem >= 32, _M32, (torch.ones_like(rem) << rem) - 1)
+
+
+def unpack_codes(words: torch.Tensor, vwords: torch.Tensor,
+                 padded_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, Lp/16) packed words → ((B, Lp) int64 2-bit codes, (B, Lp) bool valid)."""
+    pos = torch.arange(padded_len, dtype=torch.int64, device=words.device)
+    codes = (u32(words)[:, pos // 16] >> (2 * (pos % 16))) & 3
+    valid = ((u32(vwords)[:, pos // 32] >> (pos % 32)) & 1).to(torch.bool)
+    return codes, valid
 
 
 def extract_canonical_kmers(

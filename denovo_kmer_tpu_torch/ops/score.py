@@ -28,6 +28,7 @@ from denovo_kmer_tpu_torch.ops.table import (
     valid_rows,
 )
 from denovo_kmer_tpu_torch.ops.trio import Candidates
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 _SAT = 0xFFFF
 
@@ -46,9 +47,11 @@ class ScoreTable(NamedTuple):
 
 
 def score_table_from_numpy(keys: np.ndarray, counts: np.ndarray, pcounts: np.ndarray,
-                           n: int, device="cpu") -> ScoreTable:
-    """A scoring table from host uint32 arrays and the int ``n`` (a JAX ScoreTable's
-    leaves through ``np.asarray``)."""
+                           n: int, device=None) -> ScoreTable:
+    """A scoring table on ``device`` (``None``: the card) from host uint32 arrays and the
+    int ``n`` (a JAX ScoreTable's leaves through ``np.asarray``)."""
+    device = resolve_device(device)
+
     def dev64(a):
         return torch.from_numpy(np.asarray(a, np.uint32).astype(np.int64)).to(device)
 
@@ -64,7 +67,8 @@ def score_table_to_numpy(tab: ScoreTable) -> Tuple[np.ndarray, np.ndarray, np.nd
     return host32(tab.keys), host32(tab.counts), host32(tab.pcounts), int(tab.n)
 
 
-def empty_score_table(capacity: int, words: int, device="cpu") -> ScoreTable:
+def empty_score_table(capacity: int, words: int, device=None) -> ScoreTable:
+    """An empty scoring table on ``device`` (``None``: the card)."""
     t = empty_table(capacity, words, device)
     return ScoreTable(keys=t.keys, counts=t.counts, pcounts=t.counts.clone(), n=t.n)
 
@@ -101,6 +105,19 @@ def flush_score(
     # overflow is sticky across flushes (see table.merge_tables)
     n = _sticky_overflow_n(n, cap_out, tab.n > C)
     return acc._replace(fill=0), ScoreTable(keys=k, counts=cols[0], pcounts=cols[1], n=n)
+
+
+def merge_score_tables(a: ScoreTable, b: ScoreTable, capacity: int) -> ScoreTable:
+    """Merge two scoring tables (both weight columns add, wrapped to 32 bits). The parental
+    pack stays exact because each key's seed lives in one input only; overflow of either
+    input is sticky (see table.merge_tables)."""
+    keys = torch.cat([a.keys, b.keys])
+    cnt = torch.cat([a.counts, b.counts])
+    pc = torch.cat([a.pcounts, b.pcounts])
+    valid = torch.cat([valid_rows(a.n, a.capacity), valid_rows(b.n, b.capacity)])
+    k, cols, n = _aggregate_multi(keys, [cnt, pc], valid, capacity)
+    n = _sticky_overflow_n(n, capacity, a.n > a.capacity, b.n > b.capacity)
+    return ScoreTable(keys=k, counts=cols[0], pcounts=cols[1], n=n)
 
 
 def check_call_args(tau_parent: int, min_child_count: int) -> None:

@@ -34,6 +34,7 @@ from denovo_kmer_tpu_torch.ops.partition import partition_spill_blocks
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, flush, staged_valid
 from denovo_kmer_tpu_torch.ops.table import KmerTable
 from denovo_kmer_tpu_torch.parallel.router import bucketize, pass_of, route_capacity
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 #: rows per block of the partition kernel (one CTA each)
 SPILL_BLOCK_LANES = 32768
@@ -64,8 +65,10 @@ def alloc_pass_rows(rows_per_pass: int, window_cap: int, chunk_rows: int) -> int
 
 
 def empty_pass_store(n_passes: int, rows_per_pass: int, words: int,
-                     device="cpu") -> PassStore:
-    """``rows_per_pass`` here is the ALLOCATED size (``alloc_pass_rows``)."""
+                     device=None) -> PassStore:
+    """An empty store on ``device`` (``None``: the card). ``rows_per_pass`` here is the
+    ALLOCATED size (``alloc_pass_rows``)."""
+    device = resolve_device(device)
     return PassStore(
         rows=torch.zeros((n_passes, rows_per_pass, words), dtype=torch.int32, device=device),
         fill=(0,) * n_passes,

@@ -24,6 +24,7 @@ from denovo_kmer_tpu_torch.ops.table import (
     _sticky_overflow_n,
     u32,
 )
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 
 class KmerAccumulator(NamedTuple):
@@ -38,7 +39,9 @@ class KmerAccumulator(NamedTuple):
         return self.kmers.shape[0]
 
 
-def empty_accumulator(slots: int, words: int, device="cpu") -> KmerAccumulator:
+def empty_accumulator(slots: int, words: int, device=None) -> KmerAccumulator:
+    """An empty staging buffer on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     return KmerAccumulator(
         kmers=torch.zeros((slots, words), dtype=torch.int32, device=device),
         valid=torch.zeros((slots,), dtype=torch.bool, device=device),

@@ -22,6 +22,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from denovo_kmer_tpu_torch.utils.device import resolve_device
+
 PAD = 0xFFFFFFFF
 _M32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)
@@ -47,7 +49,9 @@ class KmerTable(NamedTuple):
         return self.keys.shape[1]
 
 
-def empty_table(capacity: int, words: int, device="cpu") -> KmerTable:
+def empty_table(capacity: int, words: int, device=None) -> KmerTable:
+    """An empty table on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     return KmerTable(
         keys=torch.full((capacity, words), PAD, dtype=torch.int64, device=device),
         counts=torch.zeros((capacity,), dtype=torch.int64, device=device),
@@ -55,9 +59,11 @@ def empty_table(capacity: int, words: int, device="cpu") -> KmerTable:
     )
 
 
-def table_from_numpy(keys: np.ndarray, counts: np.ndarray, n: int, device="cpu") -> KmerTable:
-    """A table from host arrays: uint32 (C, W) keys, uint32 (C,) counts and the int ``n`` —
-    what ``np.asarray`` gives of a JAX ``KmerTable``'s leaves."""
+def table_from_numpy(keys: np.ndarray, counts: np.ndarray, n: int, device=None) -> KmerTable:
+    """A table on ``device`` (``None``: the card) from host arrays: uint32 (C, W) keys,
+    uint32 (C,) counts and the int ``n`` — what ``np.asarray`` gives of a JAX
+    ``KmerTable``'s leaves."""
+    device = resolve_device(device)
     return KmerTable(
         keys=torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64)).to(device),
         counts=torch.from_numpy(np.asarray(counts, np.uint32).astype(np.int64)).to(device),
@@ -99,12 +105,13 @@ def lex_argsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
-def group_heads(sorted_keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Row i starts a group iff any key differs from row i-1 (row 0 always does)."""
-    N = sorted_keys[0].shape[0]
-    head = torch.zeros((N,), dtype=torch.bool, device=sorted_keys[0].device)
+def group_heads(s_words: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Head flags over a key-sorted stream of key columns (words or sort keys): row i
+    starts a group iff any column differs from row i-1 (row 0 always does)."""
+    N = s_words[0].shape[0]
+    head = torch.zeros((N,), dtype=torch.bool, device=s_words[0].device)
     head[0] = True
-    for k in sorted_keys:
+    for k in s_words:
         head[1:] |= k[1:] != k[:-1]
     return head
 
@@ -211,6 +218,13 @@ def merge_tables(a: KmerTable, b: KmerTable, capacity: int) -> KmerTable:
     return out._replace(
         n=_sticky_overflow_n(out.n, capacity, a.n > a.capacity, b.n > b.capacity)
     )
+
+
+def ingest_batch(table: KmerTable, kmers: torch.Tensor, valid: torch.Tensor,
+                 accumulate_kmers_capacity: int) -> KmerTable:
+    """One incremental-build step: aggregate a batch and merge it into the running table."""
+    batch_tab = build_table(kmers, valid, accumulate_kmers_capacity)
+    return merge_tables(table, batch_tab, table.capacity)
 
 
 def _lex_less(a_words, b_words) -> torch.Tensor:

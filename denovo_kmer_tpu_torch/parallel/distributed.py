@@ -26,6 +26,7 @@ import torch
 
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.ops.pack import PackedReads, pack_records, pack_seqs
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 
 def initialize_distributed(
@@ -42,8 +43,6 @@ def initialize_distributed(
     or to stage through the host. The one named is the one used. ``timeout``: seconds a
     collective waits for a peer (torch's default when None)."""
     import torch.distributed as dist
-
-    from denovo_kmer_tpu_torch.pipeline import resolve_device
 
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     n = num_processes or os.environ.get("JAX_NUM_PROCESSES")

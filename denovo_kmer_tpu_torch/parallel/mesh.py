@@ -40,6 +40,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from denovo_kmer_tpu_torch.utils.device import resolve_device
+
 AXIS_READS = "reads"
 AXIS_TABLE = "table"
 
@@ -96,8 +98,6 @@ def _process_group():
 def default_devices(device=None) -> List[torch.device]:
     """The devices a mesh draws from: every visible card, or (``device="cpu"``) one CPU
     device that ``make_mesh`` repeats."""
-    from denovo_kmer_tpu_torch.pipeline import resolve_device
-
     dev = resolve_device(device)
     if dev.type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -35,7 +35,11 @@ from denovo_kmer_tpu_torch.io.bam import read_bam_records
 from denovo_kmer_tpu_torch.io.fasta import read_fasta, read_fastq
 from denovo_kmer_tpu_torch.io.prefetch import close_unless_leaked, prefetch_placed
 from denovo_kmer_tpu_torch.ops.extract import extract_append as _extract_append
-from denovo_kmer_tpu_torch.ops.fused import fused_call_full, fused_supported
+from denovo_kmer_tpu_torch.ops.fused import (
+    candidates_from_host,
+    fused_call_full,
+    fused_supported,
+)
 from denovo_kmer_tpu_torch.ops.pack import PackedReads, pack_records, pack_records_bucketed
 from denovo_kmer_tpu_torch.ops.partition import MAX_SPILL_BUCKETS
 from denovo_kmer_tpu_torch.ops.score import (
@@ -55,6 +59,7 @@ from denovo_kmer_tpu_torch.ops.trio import Candidates
 from denovo_kmer_tpu_torch.oracle.scalar import words_to_kmer_value
 from denovo_kmer_tpu_torch.parallel.router import pass_of
 from denovo_kmer_tpu_torch.utils.checkpoint import maybe_load_flat_table
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
 _BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -101,20 +106,6 @@ def _report_feed_stats(m: Metrics, stats: dict) -> None:
             f"({cw / wall:.0%}) — the host feeder is the bottleneck",
             file=sys.stderr,
         )
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Asking for CUDA without one raises: the port never carries
-    on quietly on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' (CLI: --device cpu) to run on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 @dataclasses.dataclass
@@ -353,6 +344,14 @@ class SampleTableBuilder:
         m.count("unique_kmers", _check_table(lane.state, self.cfg))
         return lane.state
 
+    def build_bucketed(self, bucketed_batches: Iterable, metrics: Optional[Metrics] = None,
+                       bucket_steps=None) -> KmerTable:
+        """``build`` over (bucket_width, PackedReads) pairs (``pack_records_bucketed``), each
+        extracted by ``bucket_steps[width]`` (default: ``make_bucketed_extract_steps`` of the
+        config). Bit-identical to the unbucketed build."""
+        return self.build(bucketed_batches, metrics,
+                          bucket_steps or make_bucketed_extract_steps(self.cfg))
+
 
 class ScoringTableBuilder:
     """Streaming child-scoring build over a parent-seeded ScoreTable (ops/score.py).
@@ -402,14 +401,7 @@ class ScoringTableBuilder:
             keys, cc, mc, dc, n_unique, n_child_unique = fused_call_full(
                 lane.acc, table, cfg.tau_parent, cfg.min_child_count
             )
-        cands = Candidates(
-            keys=torch.from_numpy(keys.astype(np.int64)),
-            child_counts=torch.from_numpy(cc.astype(np.int64)),
-            mom_counts=torch.from_numpy(mc.astype(np.int64)),
-            dad_counts=torch.from_numpy(dc.astype(np.int64)),
-            n=torch.tensor(keys.shape[0], dtype=torch.int64),
-        )
-        return cands, n_unique, n_child_unique
+        return candidates_from_host(keys, cc, mc, dc), n_unique, n_child_unique
 
     def build_call(self, mom: KmerTable, dad: KmerTable, packed_batches: Iterable,
                    metrics: Optional[Metrics] = None, bucket_steps=None):
@@ -432,6 +424,16 @@ class ScoringTableBuilder:
         return FoldLane(cfg, _steps(cfg, self.append_packed, None),
                         empty_accumulator(_staging_slots(cfg), cfg.words, self.device),
                         seed_score_table(mom, dad, cfg.table_capacity), flush_score)
+
+    def build(self, mom: KmerTable, dad: KmerTable, packed_batches: Iterable,
+              metrics: Optional[Metrics] = None) -> ScoreTable:
+        """The compacting child build: fold the child's PackedReads stream into a scoring
+        table seeded from both parents, every window compacted (``lane``). Returns the
+        checked table; ``ops.score.call_from_score`` makes the call on it."""
+        lane = self.lane(mom, dad)
+        _fold_placed(packed_batches, self.cfg, self.device, [lane], metrics or Metrics())
+        _check_table(lane.state, self.cfg, "unique k-mers (child ∪ parents)")
+        return lane.state
 
     def child_lane(self, mom: KmerTable, dad: KmerTable, bucket_steps=None) -> FoldLane:
         """The child's fold lane: the fused call's (``call_lane``) where the k geometry
@@ -499,18 +501,19 @@ def build_sample_table(
     records,  # record iterable, or a reads-file path
     cfg: EngineConfig,
     metrics: Optional[Metrics] = None,
+    step=None,
     region: Optional[str] = None,
     device=None,
-    append_packed=None,
 ) -> KmerTable:
     """Fold a record stream into a k-mer table. Raises TableOverflowError if unique
-    k-mers exceed cfg.table_capacity (checked host-side). ``append_packed`` overrides the
-    config's ingest step (a multipass pass's filtered step) and keeps the unbucketed
-    layout; otherwise ``cfg.read_len_buckets`` takes the bucketed build."""
-    builder = SampleTableBuilder(cfg, device, append_packed)
-    if cfg.read_len_buckets and append_packed is None:
-        return builder.build(_bucketed_stream(records, cfg, region), metrics,
-                             make_bucketed_extract_steps(cfg))
+    k-mers exceed cfg.table_capacity (checked host-side). ``step`` is a
+    ``SampleTableBuilder`` (its device is used) or an ingest step (``make_ingest_step``, e.g.
+    a multipass pass's filtered step); with either the build keeps the unbucketed layout,
+    and without one ``cfg.read_len_buckets`` takes the bucketed build."""
+    builder = (step if isinstance(step, SampleTableBuilder)
+               else SampleTableBuilder(cfg, device, step))
+    if cfg.read_len_buckets and step is None:
+        return builder.build_bucketed(_bucketed_stream(records, cfg, region), metrics)
     return builder.build(packed_batches(records, cfg, region), metrics)
 
 
@@ -698,7 +701,7 @@ def _parent_tables(mom_path: str, dad_path: str, cfg: EngineConfig, m: Metrics,
         else:
             with m.timer(f"build_{name}"):
                 tables[name] = build_sample_table(path, cfg, m, region=region, device=dev,
-                                                  append_packed=append_packed)
+                                                  step=append_packed)
         m.event("table_built", sample=name, unique=int(tables[name].n))
     return tables
 
@@ -861,7 +864,7 @@ def run_trio_multipass(
                         _bucketed_stream(path, cfg, region), m, pass_bucket_steps)
             else:
                 with m.timer(f"build_{name}"):
-                    ptables[name] = build_sample_table(path, cfg, m, region, dev, pass_step)
+                    ptables[name] = build_sample_table(path, cfg, m, pass_step, region, dev)
             tables_n[name] += int(ptables[name].n)
         cands, n_child = score_child(cfg, dev, ptables["mom"], ptables["dad"], child_path, m,
                                      region, pass_step, pass_bucket_steps)

@@ -19,6 +19,7 @@ import numpy as np
 
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.ops.table import KmerTable, table_from_numpy, table_to_numpy
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 FORMAT_VERSION = 1
 
@@ -63,8 +64,6 @@ def load_table(path: str, cfg: EngineConfig, capacity: Optional[int] = None,
     """Load a table checkpoint onto ``device`` (``None``: the card, as every entry point of
     the port) at ``capacity`` (default the config's); validates the semantic config hash.
     ``with_meta=True`` → (table, meta)."""
-    from denovo_kmer_tpu_torch.pipeline import resolve_device
-
     device = resolve_device(device)
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())

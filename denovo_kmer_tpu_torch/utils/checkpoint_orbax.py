@@ -30,6 +30,7 @@ import numpy as np
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.ops.table import KmerTable, table_from_numpy, table_to_numpy
 from denovo_kmer_tpu_torch.utils.checkpoint import CheckpointError
+from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 FORMAT_VERSION = 1
 NAMES = ("counts", "keys", "n")  # orbax's tree order
@@ -134,11 +135,13 @@ def load_arrays_orbax(path: str, cfg: EngineConfig) -> dict:
             for name in ("keys", "counts", "n")}
 
 
-def load_table_orbax(path: str, cfg: EngineConfig, device=None) -> KmerTable:
-    """Restore a single-device table on ``device`` (default the card). An engine-layout
-    directory loads through ``ShardedKmerEngine.load_table(..., backend="orbax")``."""
-    from denovo_kmer_tpu_torch.pipeline import resolve_device
-
+def load_table_orbax(path: str, cfg: EngineConfig, device=None,
+                     like: Optional[KmerTable] = None) -> KmerTable:
+    """Restore a single-device table on ``device`` (default the card), or on the device of
+    ``like``, a table, when it is given. An engine-layout directory loads through
+    ``ShardedKmerEngine.load_table(..., backend="orbax")``."""
+    if like is not None:
+        device = like.keys.device
     arrs = load_arrays_orbax(path, cfg)
     if arrs["keys"].ndim != 2:
         raise CheckpointError(

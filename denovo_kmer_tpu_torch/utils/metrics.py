@@ -61,3 +61,16 @@ class Metrics:
 
     def to_dict(self) -> dict:
         return {"counters": dict(self.counters), "seconds": dict(self.seconds)}
+
+
+class StageTimer:
+    """Tiny helper for one-off stage timing."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def lap(self) -> float:
+        t = time.perf_counter()
+        dt = t - self.t0
+        self.t0 = t
+        return dt

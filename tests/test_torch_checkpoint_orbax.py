@@ -44,7 +44,8 @@ def _jax_table(seed=0):
 
 def _port_table(seed=0):
     tab = _jax_table(seed)
-    return table_from_numpy(np.asarray(tab.keys), np.asarray(tab.counts), int(tab.n))
+    return table_from_numpy(np.asarray(tab.keys), np.asarray(tab.counts), int(tab.n),
+                            "cpu")
 
 
 def _engines(seed):
@@ -151,3 +152,18 @@ def test_missing_tensorstore_raises_and_writes_nothing(tmp_path, monkeypatch):
     with pytest.raises(ImportError, match="tensorstore"):
         checkpoint_orbax.save_table_orbax(p, _port_table(0), EngineConfig(**CFG))
     assert os.listdir(tmp_path) == []
+
+
+def test_load_like_takes_the_tables_device(tmp_path):
+    """``like=`` restores onto the device of the table given (JAX: onto its sharding), with
+    no card needed when that table is on the CPU; the values are JAX's."""
+    p = str(tmp_path / "tab.orbax")
+    ref = _jax_table(3)
+    jax_save(p, ref, JaxConfig(**CFG))
+    want = jax_load(p, JaxConfig(**CFG), like=ref)
+    got = checkpoint_orbax.load_table_orbax(p, EngineConfig(**CFG), like=_port_table(4))
+    assert got.keys.device.type == "cpu"
+    keys, counts, n = table_to_numpy(got)
+    assert n == int(want.n)
+    np.testing.assert_array_equal(keys, np.asarray(want.keys))
+    np.testing.assert_array_equal(counts, np.asarray(want.counts))

@@ -109,9 +109,9 @@ def test_extract_append_lengths_equals_vwords(k, max_len):
     assert p.prefix_valid
     words = as_int32_tensor(p.words)
     W, P = -(-2 * k // 32), max_len - k + 1
-    a = extract_append(empty_accumulator(3 * 64 * P, W), words, None,
+    a = extract_append(empty_accumulator(3 * 64 * P, W, "cpu"), words, None,
                        torch.from_numpy(p.length), k, max_len)
-    b = extract_append(empty_accumulator(3 * 64 * P, W), words, as_int32_tensor(p.vwords),
+    b = extract_append(empty_accumulator(3 * 64 * P, W, "cpu"), words, as_int32_tensor(p.vwords),
                        None, k, max_len)
     assert a.fill == b.fill == 64 * P
     np.testing.assert_array_equal(a.valid.numpy(), b.valid.numpy())
@@ -126,7 +126,7 @@ def test_extract_append_lengths_equals_vwords(k, max_len):
 def test_extract_append_checks_its_inputs():
     p = _packed(31, 96, n_rate=0.0)
     words = as_int32_tensor(p.words)
-    acc = empty_accumulator(64 * 66, 2)
+    acc = empty_accumulator(64 * 66, 2, "cpu")
     with pytest.raises(TypeError):
         extract_append(acc, words.to(torch.int64), None, torch.from_numpy(p.length), 31, 96)
     with pytest.raises(ValueError):  # staging has room for one batch only
@@ -190,7 +190,7 @@ def test_long_reads_take_several_chunks(k, max_len, chunks):
     P = max_len - k + 1
     assert -(-P // (16 * _chunk_words(k))) == chunks
     p = _packed(k, max_len, n_rate=0.0)
-    acc = extract_append(empty_accumulator(64 * P, -(-2 * k // 32)), as_int32_tensor(p.words),
+    acc = extract_append(empty_accumulator(64 * P, -(-2 * k // 32), "cpu"), as_int32_tensor(p.words),
                          None, torch.from_numpy(p.length), k, max_len)
     assert acc.fill == 64 * P
     lengths = p.length.astype(np.int64)
@@ -224,7 +224,7 @@ def test_pass_filter_matches_jax_ingest_step(jax_pass_step, pass_id, feed):
         length=as_int32_tensor(p.length))
     step = make_ingest_step(EngineConfig(k=31, max_read_len=96, batch_reads=64,
                                          table_capacity=1 << 10), n_passes=3)
-    got = step(empty_accumulator(64 * P, 2), placed, pass_id)
+    got = step(empty_accumulator(64 * P, 2, "cpu"), placed, pass_id)
     want_v = np.asarray(want.valid)
     np.testing.assert_array_equal(got.valid.numpy(), want_v)
     np.testing.assert_array_equal(got.kmers.numpy().view(np.uint32)[want_v],
@@ -237,13 +237,13 @@ def test_pass_filters_partition_the_windows():
     p = _packed(21, 64)
     args = (as_int32_tensor(p.words), as_int32_tensor(p.vwords), None, 21, 64)
     rows = 64 * (64 - 21 + 1)
-    full = extract_append(empty_accumulator(rows, 2), *args)
-    masks = [extract_append(empty_accumulator(rows, 2), *args, n_passes=3, pass_id=i).valid
+    full = extract_append(empty_accumulator(rows, 2, "cpu"), *args)
+    masks = [extract_append(empty_accumulator(rows, 2, "cpu"), *args, n_passes=3, pass_id=i).valid
              for i in range(3)]
     assert torch.equal(masks[0] | masks[1] | masks[2], full.valid)
     assert not (masks[0] & masks[1]).any() and not (masks[1] & masks[2]).any()
     with pytest.raises(ValueError, match="pass_id"):
-        extract_append(empty_accumulator(rows, 2), *args, n_passes=3, pass_id=3)
+        extract_append(empty_accumulator(rows, 2, "cpu"), *args, n_passes=3, pass_id=3)
 
 
 @pytest.fixture

@@ -40,7 +40,8 @@ def _accs(staged, valid, fill):
 
 
 def _port_score(jtab):
-    return tscore.score_table_from_numpy(*(np.asarray(x) for x in jtab[:3]), int(jtab.n))
+    return tscore.score_table_from_numpy(*(np.asarray(x) for x in jtab[:3]), int(jtab.n),
+                                       "cpu")
 
 
 def _assert_same(got, want):

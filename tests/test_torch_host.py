@@ -15,6 +15,8 @@ from denovo_kmer_tpu.io import bgzf as jbgzf
 from denovo_kmer_tpu.io.fasta import read_fasta as jax_read_fasta
 from denovo_kmer_tpu.io.fasta import read_fastq as jax_read_fastq
 from denovo_kmer_tpu.oracle import scalar as joracle
+from denovo_kmer_tpu.io.prefetch import prefetch_placed as jax_prefetch_placed
+from denovo_kmer_tpu.utils import metrics as jmetrics
 from denovo_kmer_tpu.utils.metrics import Metrics as JaxMetrics
 from denovo_kmer_tpu_torch import config as tconfig
 from denovo_kmer_tpu_torch.io import bam as tbam
@@ -23,6 +25,7 @@ from denovo_kmer_tpu_torch.io.fasta import read_fasta, read_fastq
 from denovo_kmer_tpu_torch.io.prefetch import prefetch_batches, prefetch_placed
 from denovo_kmer_tpu_torch.ops.pack import PackedReads, pack_seqs
 from denovo_kmer_tpu_torch.oracle import scalar as toracle
+from denovo_kmer_tpu_torch.utils import metrics as tmetrics
 from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
 torch.set_num_threads(1)
@@ -190,3 +193,55 @@ def test_prefetch_placed_on_cpu_ships_lengths_for_prefix_valid_batches():
     np.testing.assert_array_equal(a.length.numpy(), clean.length)
     assert b.vwords is not None and isinstance(b.length, np.ndarray)
     np.testing.assert_array_equal(b.vwords.numpy().view(np.uint32), with_n.vwords)
+
+
+def test_prefetch_placed_put_places_each_array_as_jax_does():
+    """``put`` receives the same host arrays, in the same order, as the JAX package's; the
+    placed batches carry what it returns."""
+    from denovo_kmer_tpu.config import EngineConfig as JaxConfig
+    from denovo_kmer_tpu.ops.pack import pack_seqs as jax_pack_seqs
+
+    seqs = [["ACGTACGTACGTA", "TTTTGGGGCCCCAAAA"], ["ACGTNACGTACGTA"], ["GATTACA" * 3]]
+    kw = dict(k=11, max_read_len=32, batch_reads=4, table_capacity=64)
+    calls = {}
+    for name, prefetch, pack, cfg in (
+            ("jax", jax_prefetch_placed, jax_pack_seqs, JaxConfig(**kw)),
+            ("port", prefetch_placed, pack_seqs, tconfig.EngineConfig(**kw))):
+        seen = []
+
+        def put(a, seen=seen):
+            seen.append(np.array(a))
+            return ("placed", len(seen))
+
+        batches = [pack(s, cfg, batch_size=4) for s in seqs]
+        out = list(prefetch(iter(batches), put=put, ship_lengths=True))
+        # words then lengths (prefix-valid) or validity words (a batch with an N)
+        assert [b.words for b in out] == [("placed", i) for i in (1, 3, 5)]
+        assert out[0].vwords is None and out[1].vwords == ("placed", 4)
+        calls[name] = seen
+    assert len(calls["port"]) == len(calls["jax"]) == 6
+    for a, b in zip(calls["port"], calls["jax"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_prefetch_placed_defaults_to_the_card():
+    cfg = tconfig.EngineConfig(k=11, max_read_len=32, batch_reads=4, table_capacity=64)
+    batches = iter([pack_seqs(["ACGTACGTACGTA"], cfg, batch_size=4)])
+    if torch.cuda.is_available():
+        assert next(prefetch_placed(batches)).words.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            next(prefetch_placed(batches))
+
+
+def test_stage_timer_laps_as_jax_does(monkeypatch):
+    import types
+
+    for mod in (jmetrics, tmetrics):
+        clock = iter([10.0, 10.5, 12.0])
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            perf_counter=lambda clock=clock: next(clock)))
+    laps = []
+    for timer in (jmetrics.StageTimer(), tmetrics.StageTimer()):
+        laps.append((timer.lap(), timer.lap(), timer.t0))
+    assert laps[0] == laps[1] == (0.5, 1.5, 12.0)

@@ -54,7 +54,7 @@ def _jax(t):
 
 
 def _port(t):
-    return table_from_numpy(*t)
+    return table_from_numpy(*t, "cpu")
 
 
 CASES = [  # (k, pool size, (child, mom, dad) fractions, capacity, overflowed tables)

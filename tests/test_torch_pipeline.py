@@ -133,7 +133,7 @@ def test_jax_parent_tables_feed_the_port_scorer(trio_dir, jax_result):
     for s in ("mom", "dad"):
         jt = jax_build_sample_table(paths[s], jcfg)
         parents.append(table_from_numpy(np.asarray(jt.keys), np.asarray(jt.counts),
-                                        int(jt.n)))
+                                        int(jt.n), "cpu"))
     cands, _, child_n = ScoringTableBuilder(cfg, device="cpu").build_call(
         *parents, packed_batches(paths["child"], cfg))
     n = int(cands.n)
@@ -221,3 +221,107 @@ def test_synth_trio_cli_writes_what_the_jax_cli_writes(tmp_path):
     meta = {d: json.loads((tmp_path / d / "trio.json").read_text()) for d in ("port", "jax")}
     assert meta["port"]["denovo_positions"] == meta["jax"]["denovo_positions"]
     assert meta["port"]["spec"] == meta["jax"]["spec"]
+
+
+# the builders' library methods (SampleTableBuilder.build_bucketed, ScoringTableBuilder.build,
+# build_sample_table(step=)) against the JAX package's at W = 1..4 (k = 15, 21, 33, 49 on the
+# 60-bp reads of the fixture)
+KS_BY_W = [15, 21, 33, 49]
+
+
+def _buckets(k):
+    """Bucket widths of the 64-slot reads that hold a k-mer."""
+    return tuple(w for w in (32, 48, 64) if w >= k)
+
+
+def _assert_same_table(port, jax_t):
+    from denovo_kmer_tpu_torch.ops.table import table_to_numpy
+
+    keys, counts, n = table_to_numpy(port)
+    np.testing.assert_array_equal(keys, np.asarray(jax_t.keys))
+    np.testing.assert_array_equal(counts, np.asarray(jax_t.counts))
+    assert n == int(jax_t.n) > 0
+
+
+@pytest.mark.parametrize("step", ["builder", "ingest_step"])
+@pytest.mark.parametrize("k", KS_BY_W)
+def test_build_sample_table_with_a_step_matches_jax(trio_dir, k, step):
+    """A step (a builder, or an ingest step) keeps the unbucketed layout even where the
+    config has buckets, in both packages."""
+    from denovo_kmer_tpu.pipeline import SampleTableBuilder as JaxBuilder
+    from denovo_kmer_tpu.pipeline import make_ingest_step as jax_make_ingest_step
+    from denovo_kmer_tpu_torch.pipeline import (
+        SampleTableBuilder,
+        build_sample_table,
+        make_ingest_step,
+    )
+
+    _, _, paths = trio_dir
+    cfg_d = dict(CFG, k=k, accum_batches=2, read_len_buckets=_buckets(k))
+    jcfg, cfg = JaxConfig(**cfg_d), EngineConfig(**cfg_d)
+    if step == "builder":
+        jstep, tstep = JaxBuilder(jcfg), SampleTableBuilder(cfg, "cpu")
+    else:
+        jstep, tstep = jax_make_ingest_step(jcfg), make_ingest_step(cfg)
+    want = jax_build_sample_table(paths["dad"], jcfg, step=jstep)
+    got = build_sample_table(paths["dad"], cfg, step=tstep, device="cpu")
+    _assert_same_table(got, want)
+
+
+def _trimmed(path, seed):
+    """The records of ``path`` trimmed to 20..60 bases: a mixed-length stream."""
+    import types
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for r in read_bam_records(path):
+        n = int(rng.integers(20, len(r.seq) + 1))
+        out.append(types.SimpleNamespace(seq=r.seq[:n], qual=r.qual[:n] if r.qual else r.qual,
+                                         flag=r.flag))
+    return out
+
+
+@pytest.mark.parametrize("k", KS_BY_W)
+def test_build_bucketed_matches_jax(trio_dir, k):
+    from denovo_kmer_tpu.ops.pack import pack_records_bucketed as jax_pack_bucketed
+    from denovo_kmer_tpu.pipeline import SampleTableBuilder as JaxBuilder
+    from denovo_kmer_tpu_torch.ops.pack import pack_records_bucketed
+    from denovo_kmer_tpu_torch.pipeline import SampleTableBuilder, build_sample_table
+
+    _, _, paths = trio_dir
+    records = _trimmed(paths["mom"], k)
+    cfg_d = dict(CFG, k=k, accum_batches=2, read_len_buckets=_buckets(k))
+    jcfg, cfg = JaxConfig(**cfg_d), EngineConfig(**cfg_d)
+    want = JaxBuilder(jcfg).build_bucketed(jax_pack_bucketed(iter(records), jcfg))
+    got = SampleTableBuilder(cfg, "cpu").build_bucketed(pack_records_bucketed(iter(records),
+                                                                              cfg))
+    _assert_same_table(got, want)
+    # bit-identical to the unbucketed build
+    plain = EngineConfig(**dict(cfg_d, read_len_buckets=None))
+    _assert_same_table(build_sample_table(iter(records), plain, device="cpu"), want)
+
+
+@pytest.mark.parametrize("k", KS_BY_W)
+def test_scoring_builder_build_matches_jax(trio_dir, k):
+    """The compacting child build returns the JAX package's ScoreTable, and its call the
+    run's candidates."""
+    from denovo_kmer_tpu.pipeline import ScoringTableBuilder as JaxScoringBuilder
+    from denovo_kmer_tpu.pipeline import packed_batches as jax_packed_batches
+    from denovo_kmer_tpu_torch.ops.score import call_from_score, score_table_to_numpy
+    from denovo_kmer_tpu_torch.pipeline import build_sample_table
+
+    _, _, paths = trio_dir
+    cfg_d = dict(CFG, k=k, accum_batches=2)
+    jcfg, cfg = JaxConfig(**cfg_d), EngineConfig(**cfg_d)
+    jmom, jdad = (jax_build_sample_table(paths[s], jcfg) for s in ("mom", "dad"))
+    tmom, tdad = (build_sample_table(paths[s], cfg, device="cpu") for s in ("mom", "dad"))
+    want = JaxScoringBuilder(jcfg).build(jmom, jdad, jax_packed_batches(paths["child"], jcfg))
+    got = ScoringTableBuilder(cfg, device="cpu").build(tmom, tdad,
+                                                       packed_batches(paths["child"], cfg))
+    for a, b in zip(score_table_to_numpy(got), want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    cands = call_from_score(got, cfg.tau_parent, cfg.min_child_count)
+    n = int(cands.n)
+    res = run_trio(paths["mom"], paths["dad"], paths["child"], cfg, device="cpu")
+    assert n == len(res.candidates) > 0
+    assert [int(c) for c in cands.child_counts[:n]] == [c for _, c, _, _ in res.candidates]

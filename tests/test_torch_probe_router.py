@@ -156,7 +156,7 @@ def _sharded_tables(keys_np, counts_np, shape, shard_cap, W):
 
     jt = JaxTable(keys=put(keys, P("reads", "table", None, None)),
                   counts=put(counts, P("reads", "table", None)), n=put(ns, P("reads", "table")))
-    pt = [[table_from_numpy(keys[r, t], counts[r, t], ns[r, t]) for t in range(T)]
+    pt = [[table_from_numpy(keys[r, t], counts[r, t], ns[r, t], "cpu") for t in range(T)]
           for r in range(R)]
     return jm, jt, pt
 
@@ -192,7 +192,7 @@ def test_sharded_probe_matches_jax_and_probe_table(shape, plan):
     rng.shuffle(queries)
     valid = rng.random(n_queries) < 0.9
     got, ovf = _both_probes(shape, plan, 2.5, tk, tc, queries, valid, 2048)
-    flat = table_from_numpy(np.asarray(tab.keys), np.asarray(tab.counts), n_tab)
+    flat = table_from_numpy(np.asarray(tab.keys), np.asarray(tab.counts), n_tab, "cpu")
     want = probe_table(flat, torch.from_numpy(queries.astype(np.int64))).numpy()
     assert ovf == 0
     np.testing.assert_array_equal(got, np.where(valid, want, 0))
@@ -214,7 +214,7 @@ def test_ring_probe_exact_under_skew():
     _, ovf = _both_probes((1, 8), "alltoall", 1.0, tk, tc, queries, valid, 4096)
     assert ovf > 0
     got, ovf_r = _both_probes((1, 8), "ring", 1.0, tk, tc, queries, valid, 4096)
-    flat = table_from_numpy(np.asarray(tab.keys), np.asarray(tab.counts), n_tab)
+    flat = table_from_numpy(np.asarray(tab.keys), np.asarray(tab.counts), n_tab, "cpu")
     assert ovf_r == 0
     np.testing.assert_array_equal(
         got, probe_table(flat, torch.from_numpy(queries.astype(np.int64))).numpy())

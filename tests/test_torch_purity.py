@@ -58,7 +58,9 @@ def test_import_loads_no_jax():
         "import denovo_kmer_tpu_torch.parallel.multihost, denovo_kmer_tpu_torch.parallel.distributed\n"
         "import denovo_kmer_tpu_torch.utils.checkpoint_orbax\n"
         "import denovo_kmer_tpu_torch.io.vcf, denovo_kmer_tpu_torch.io.bcf\n"
-        "import denovo_kmer_tpu_torch.io.tabix\n"
+        "import denovo_kmer_tpu_torch.io.tabix, denovo_kmer_tpu_torch.ops.extract_fast\n"
+        "import denovo_kmer_tpu_torch.parallel, denovo_kmer_tpu_torch.utils.device\n"
+        "from denovo_kmer_tpu_torch.parallel import *\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

@@ -306,7 +306,8 @@ def test_place_flat_table_from_a_count_checkpoint(tmp_path):
     # a flat table with more keys of one shard than the shard holds is refused
     small = ShardedKmerEngine(EngineConfig(**dict(CFG, table_capacity=256)),
                               make_mesh((1, 2), device="cpu"))
-    big = table_from_numpy(np.asarray(flat.keys), np.asarray(flat.counts), int(flat.n))
+    big = table_from_numpy(np.asarray(flat.keys), np.asarray(flat.counts), int(flat.n),
+                           "cpu")
     with pytest.raises(RuntimeError, match="raise --table-capacity"):
         small.place_flat_table(big)
 

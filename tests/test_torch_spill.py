@@ -126,7 +126,7 @@ def test_partition_window_matches_jax(S, W, fill, n_passes, factor, monkeypatch)
 def test_store_append_never_clamps_near_full():
     """The port of tests/test_spill.py's test: a snugly sized store keeps every row."""
     rows_pp, cap, W = 8, 6, 1
-    store = empty_pass_store(1, alloc_pass_rows(rows_pp, cap, 1), W)
+    store = empty_pass_store(1, alloc_pass_rows(rows_pp, cap, 1), W, "cpu")
     d1 = torch.arange(cap, dtype=torch.int32).reshape(1, cap, W) + 1
     d2 = torch.arange(cap, dtype=torch.int32).reshape(1, cap, W) + 101
     store = store_append(store, d1, torch.tensor([3], dtype=torch.int32))
@@ -137,7 +137,7 @@ def test_store_append_never_clamps_near_full():
 
 def test_store_append_past_the_allocation_counts_every_row():
     """Rows that do not fit are not written, but fill counts them for the guard."""
-    store = empty_pass_store(2, 4, 1)
+    store = empty_pass_store(2, 4, 1, "cpu")
     d = torch.arange(12, dtype=torch.int32).reshape(2, 6, 1) + 1
     store = store_append(store, d, [3, 1])
     store = store_append(store, d, [3, 2])

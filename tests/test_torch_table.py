@@ -15,6 +15,7 @@ from denovo_kmer_tpu.ops.extract_fast import extract_canonical_kmers_fast
 from denovo_kmer_tpu.config import EngineConfig as JaxConfig
 from denovo_kmer_tpu.ops.pack import pack_seqs as jax_pack_seqs
 from denovo_kmer_tpu_torch.ops import score as tscore
+from denovo_kmer_tpu_torch.ops import spill as tspill
 from denovo_kmer_tpu_torch.ops import stream as tstream
 from denovo_kmer_tpu_torch.ops import table as ttable
 from denovo_kmer_tpu_torch.ops.extract import append_plain
@@ -46,7 +47,8 @@ def _jax_table(rng, n_rows, W, capacity):
 
 
 def _port_table(jt):
-    return ttable.table_from_numpy(np.asarray(jt.keys), np.asarray(jt.counts), int(jt.n))
+    return ttable.table_from_numpy(np.asarray(jt.keys), np.asarray(jt.counts), int(jt.n),
+                                   "cpu")
 
 
 def _assert_table_equal(port, jax_t):
@@ -114,11 +116,11 @@ def test_flush_overflow_is_sticky():
     _, jout = jstream.flush(jacc, jtable.empty_table(C, W))
     tacc = tstream.KmerAccumulator(
         torch.from_numpy(staged.view(np.int32)), torch.ones(200, dtype=torch.bool), 200)
-    _, tout = tstream.flush(tacc, ttable.empty_table(C, W))
+    _, tout = tstream.flush(tacc, ttable.empty_table(C, W, "cpu"))
     _assert_table_equal(tout, jout)
     assert int(tout.n) > C
     # a later flush of nothing recomputes n from the survivors; the overflow stays visible
-    empty = tstream.empty_accumulator(8, W)
+    empty = tstream.empty_accumulator(8, W, "cpu")
     _, again = tstream.flush(empty, tout)
     _, jagain = jstream.flush(jstream.empty_accumulator(8, W), jout)
     _assert_table_equal(again, jagain)
@@ -212,9 +214,9 @@ def test_all_ones_strip_rule_matches_jax(real_all_ones):
     jacc = jstream.append(jstream.empty_accumulator(S, 1), jk, jv)
     _, jout = jstream.flush(jacc, jtable.empty_table(64, 1))
 
-    tacc = append_plain(tstream.empty_accumulator(S, 1), as_int32_tensor(packed.words),
+    tacc = append_plain(tstream.empty_accumulator(S, 1, "cpu"), as_int32_tensor(packed.words),
                         as_int32_tensor(packed.vwords), None, k, L, canonical=False)
-    _, tout = tstream.flush(tacc, ttable.empty_table(64, 1))
+    _, tout = tstream.flush(tacc, ttable.empty_table(64, 1, "cpu"))
     _assert_table_equal(tout, jout)
     keys, counts, n = ttable.table_to_numpy(tout)
     has_ones = bool((keys[:n, 0] == 0xFFFFFFFF).any())
@@ -233,7 +235,116 @@ def test_table_numpy_round_trip():
     assert n == int(jt.n)
     jseed = jscore.seed_score_table(jt, jt, 512)
     back = tscore.score_table_to_numpy(tscore.score_table_from_numpy(
-        *(np.asarray(x) for x in jseed[:3]), int(jseed.n)))
+        *(np.asarray(x) for x in jseed[:3]), int(jseed.n), "cpu"))
     for a, b in zip(back[:3], jseed[:3]):
         np.testing.assert_array_equal(a, np.asarray(b))
     assert back[3] == int(jseed.n)
+
+
+def _wrapping(jt, rng):
+    """``jt`` with counts near 2^32, so that a merge's sums wrap as uint32 sums do."""
+    counts = np.asarray(jt.counts).copy()
+    n = int(jt.n)
+    counts[:n] = np.uint32(0xFFFFFFFF) - rng.integers(0, 4, n).astype(np.uint32)
+    return jt._replace(counts=jnp.asarray(counts))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_ingest_batch_matches_jax(W):
+    """tests/test_ops_parity.py:125: batches folded one at a time into a running table."""
+    rng = np.random.default_rng(41 + W)
+    jt = _wrapping(_jax_table(rng, 150, W, 512), rng)
+    tt = _port_table(jt)
+    for _ in range(3):
+        kmers = _keys(rng, 6 * 40, W).reshape(6, 40, W)
+        valid = rng.random((6, 40)) < 0.85
+        jt = jtable.ingest_batch(jt, jnp.asarray(kmers), jnp.asarray(valid), 256)
+        tt = ttable.ingest_batch(tt, _t(kmers), torch.from_numpy(valid), 256)
+        _assert_table_equal(tt, jt)
+    assert int(tt.n) <= 512
+
+
+def test_ingest_batch_overflow_is_sticky():
+    """A batch with more uniques than the accumulate capacity, then a table too small:
+    ``n`` stays above the capacity in both packages."""
+    rng = np.random.default_rng(3)
+    W = 2
+    jt, tt = jtable.empty_table(64, W), ttable.empty_table(64, W, "cpu")
+    for acc_cap in (32, 256):
+        kmers = _keys(rng, 200, W, pool=200)[None]
+        valid = np.ones((1, 200), bool)
+        jt = jtable.ingest_batch(jt, jnp.asarray(kmers), jnp.asarray(valid), acc_cap)
+        tt = ttable.ingest_batch(tt, _t(kmers), torch.from_numpy(valid), acc_cap)
+        _assert_table_equal(tt, jt)
+        assert int(tt.n) > 64
+
+
+def _jax_score(rng, W, n_rows, capacity):
+    jm, jd = _jax_table(rng, n_rows, W, capacity), _jax_table(rng, n_rows, W, capacity)
+    return jscore.seed_score_table(jm, _wrapping(jd, rng), 2 * capacity)
+
+
+def _port_score(js):
+    return tscore.score_table_from_numpy(*(np.asarray(x) for x in js[:3]), int(js.n), "cpu")
+
+
+def _assert_score_equal(port, jax_t):
+    for a, b in zip(tscore.score_table_to_numpy(port)[:3], jax_t[:3]):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert int(port.n) == int(jax_t.n)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_merge_score_tables_matches_jax(W):
+    """Both weight columns add (the child counts near 2^32 wrap) at a capacity that holds
+    the union and at one that overflows."""
+    rng = np.random.default_rng(51 + W)
+    ja, jb = _jax_score(rng, W, 200, 128), _jax_score(rng, W, 90, 64)
+    ja = ja._replace(counts=jnp.asarray(np.where(np.arange(256) < int(ja.n), 0xFFFFFFFE,
+                                                 0).astype(np.uint32)))
+    jb = jb._replace(counts=jnp.asarray(np.where(np.arange(128) < int(jb.n), 3,
+                                                 0).astype(np.uint32)))
+    for cap in (512, 40):
+        jm = jscore.merge_score_tables(ja, jb, cap)
+        tm = tscore.merge_score_tables(_port_score(ja), _port_score(jb), cap)
+        _assert_score_equal(tm, jm)
+    assert int(tm.n) > 40
+
+
+def test_merge_score_tables_carries_an_input_overflow():
+    """An overflowed input pins ``n`` above the capacity even where the merge fits."""
+    rng = np.random.default_rng(61)
+    ja, jb = _jax_score(rng, 2, 200, 128), _jax_score(rng, 2, 40, 32)
+    jover = jscore.merge_score_tables(ja, jb, 16)
+    tover = tscore.merge_score_tables(_port_score(ja), _port_score(jb), 16)
+    _assert_score_equal(tover, jover)
+    jm = jscore.merge_score_tables(jover, jb, 1024)
+    tm = tscore.merge_score_tables(tover, _port_score(jb), 1024)
+    _assert_score_equal(tm, jm)
+    assert int(tm.n) > 1024 >= int(tover.n) > 16
+
+
+CONSTRUCTORS = {
+    "empty_table": lambda device: ttable.empty_table(8, 2, **device),
+    "table_from_numpy": lambda device: ttable.table_from_numpy(
+        np.zeros((8, 2), np.uint32), np.zeros(8, np.uint32), 0, **device),
+    "score_table_from_numpy": lambda device: tscore.score_table_from_numpy(
+        np.zeros((8, 2), np.uint32), np.zeros(8, np.uint32), np.zeros(8, np.uint32), 0,
+        **device),
+    "empty_score_table": lambda device: tscore.empty_score_table(8, 2, **device),
+    "empty_accumulator": lambda device: tstream.empty_accumulator(8, 2, **device),
+    "empty_pass_store": lambda device: tspill.empty_pass_store(2, 8, 2, **device),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructor_defaults_to_the_card(name):
+    """Without a device a public constructor allocates on the card, and raises
+    ``resolve_device``'s error where there is none; it never lands on the CPU."""
+    made = CONSTRUCTORS[name]({"device": "cpu"})
+    assert made[0].device.type == "cpu"
+    if torch.cuda.is_available():
+        assert CONSTRUCTORS[name]({})[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            CONSTRUCTORS[name]({})
