@@ -5,7 +5,8 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA card (sm_90a, nvcc under
 /usr/local/cuda or $CUDA_HOME) and g++ with zlib. It starts six worker processes (phase
-8's CRAM and sorted-BAM writers), an HTTP server thread on 127.0.0.1 and three pairs of
+8's CRAM and sorted-BAM writers), one a CPU core (phase 12's data and reference), an HTTP
+server thread on 127.0.0.1 and three pairs of
 spawned ranks (phase 10, a gloo process group on 127.0.0.1), and stops them all. It exits
 non-zero, printing no result, without a card or without the package beside it. Phases,
 each printed as one JSON line:
@@ -169,9 +170,39 @@ each printed as one JSON line:
               table_from_numpy, empty_score_table, score_table_from_numpy,
               empty_accumulator and empty_pass_store without a device allocate on the card.
 
+12. scale   — the main path at a real size: a chr20-length trio (64,444,167 bp, uniform
+              random; two haplotypes a parent with substitution SNVs at 1e-3 each; the child
+              mom's haplotype 0 with 100 de novo SNVs and dad's haplotype 0), 30x: 12,803,477
+              reads of 151 bp a sample, each from one of its sample's haplotypes, half
+              reverse strand, with substitution errors and Ns at 1e-3 a base. The reads are
+              made in chunks on a spawn pool of one worker a CPU core, each chunk from its
+              own seed, and written as BAMs (one reference chr20) by a vectorized
+              fixed-layout record writer with BGZF compression in the workers (2.5 GB of
+              BAMs under the work directory). The same workers build an independent numpy
+              reference: each chunk's canonical k-mers split into 64 hash buckets in a
+              shared-memory buffer a sample (3 x 12.4 GB of host memory at the peak, about
+              1 GB more a worker), then np.unique with counts a bucket, and the child's
+              candidates a bucket. About 3.5 minutes on the H100's 8-core host, 2.5 of them
+              the data and reference. Then
+              `call` through the CLI on the card: (a) single-pass at --table-capacity 2^28
+              with --accum-batches auto, under a torch.profiler trace, and (b) the 4-pass
+              device-store spill (--spill-rows 1.10 x the largest sample's valid windows / 4)
+              at 2^26. (a)'s report must equal the reference's candidates row for row and
+              its tables_n the reference's unique counts, every planted de novo SNV must lie
+              under a candidate unless the reference shows each k-mer over it seen fewer than
+              twice in the child or seen in a parent (a parent's read with the de novo base
+              by a sequencing error hides a site at tau_parent 0; such sites are printed
+              with their counts), and (b)'s report must equal (a)'s; each run must launch the
+              extraction once a batch (2,346) and the partition once a staging window in (b)
+              only, and no flush, seed or fused call may hold more device bytes a row than
+              the CLI's auto model counts (cli.FLUSH_BYTES_PER_ROW). Each run prints its
+              wall, Metrics split, feed_wait, peak device bytes, the window auto chose, and
+              each table step's calls and device seconds (CUDA events); (a) also its busy
+              time, idle share and time by kernel.
+
 BAMs store reverse-strand reads in reference orientation at the position of their first
 stored base, as an aligner does; canonical counting does not see the strand. Each path of
-phases 4 to 11 runs with every kernel's launch count set to 0 just before it and read just
+phases 4 to 12 runs with every kernel's launch count set to 0 just before it and read just
 after; the counts come from those runs alone (the block sort is a probe that no path
 launches). Then a ``kernels`` line (one entry per kernel), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -187,13 +218,16 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -2933,6 +2967,664 @@ def phase_library(main):
     return out
 
 
+# ---------------------------------------------------------------------------------------
+# phase 12: the main path at a real size, a chr20-length 30x trio
+# ---------------------------------------------------------------------------------------
+
+SCALE_SAMPLES = ("mom", "dad", "child")
+SCALE_CAPACITY = 1 << 28  # the next power of two above 1.15 x ~128M uniques a sample
+SCALE_SPILL_CAPACITY = 1 << 26  # >= 1.15 x 128M / 4 passes
+SCALE_PASSES = 4
+SCALE_SPILL_SLACK = 1.10  # --spill-rows: 1.10 x the largest sample's valid windows / passes
+SCALE_BUCKETS = 64  # hash buckets of the numpy reference
+SCALE_FLAGS = ["-k", str(K), "--max-read-len", "160", "--batch-reads", "16384",
+               "--accum-batches", "auto", "--device", "cuda"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleSpec:
+    """A trio at a real size, made from ``seed`` with numpy: a uniform random genome; two
+    haplotypes a parent, each with substitution SNVs at ``het_rate`` drawn independently;
+    the child is mom's haplotype 0 with ``dnms`` de novo SNVs (at sites where no parental
+    haplotype varies) and dad's haplotype 0. Each sample has ``coverage`` x genome_len /
+    READ_LEN reads, each from one of its two haplotypes at random, half of them reverse
+    strand (stored in reference orientation, as an aligner stores them), with substitution
+    errors at ``err_rate`` and Ns at ``n_rate`` a base. Reads are drawn in chunks of
+    ``chunk_reads``, each from its own seed, so any worker can make any chunk."""
+
+    genome_len: int = 64_444_167  # GRCh38 chr20
+    coverage: int = 30
+    het_rate: float = 1e-3
+    dnms: int = 100
+    err_rate: float = 1e-3
+    n_rate: float = 1e-3
+    chunk_reads: int = 100_000
+    seed: int = 0
+    ref_name: str = "chr20"
+
+    @property
+    def reads(self) -> int:
+        return -(-self.coverage * self.genome_len // READ_LEN)
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.reads // self.chunk_reads)
+
+
+def _hap_path(work, sample, h):
+    return os.path.join(work, f"{sample}.hap{h}.npy")
+
+
+def scale_haplotypes(spec, work):
+    """Write each sample's two haplotypes to ``work`` (``{sample}.hap{h}.npy``). → (the
+    sorted de novo positions, the child's maternal haplotype)."""
+    rng = np.random.default_rng([spec.seed, 12])
+    L = spec.genome_len
+    genome = rng.integers(0, 4, L, dtype=np.uint8)
+    varies = np.zeros(L, bool)
+    haps = {}
+    for parent in ("mom", "dad"):
+        for h in (0, 1):
+            hap = genome.copy()
+            pos = np.unique(rng.integers(0, L, rng.binomial(L, spec.het_rate)))
+            hap[pos] = (hap[pos] + rng.integers(1, 4, pos.size, dtype=np.uint8)) % 4
+            varies[pos] = True
+            haps[parent, h] = hap
+    sites = np.unique(rng.integers(K, L - K, 4 * spec.dnms + 64))
+    sites = sites[~varies[sites]]
+    dnms = np.sort(rng.choice(sites, spec.dnms, replace=False))
+    child0 = haps["mom", 0].copy()
+    child0[dnms] = (genome[dnms] + rng.integers(1, 4, spec.dnms, dtype=np.uint8)) % 4
+    haps["child", 0], haps["child", 1] = child0, haps["dad", 0]
+    for (sample, h), hap in haps.items():
+        np.save(_hap_path(work, sample, h), hap)
+    return dnms, child0
+
+
+@functools.lru_cache(maxsize=1)
+def _haplotypes(work, sample):
+    """A sample's two haplotypes (a worker keeps the last sample's in memory)."""
+    return [np.load(_hap_path(work, sample, h)) for h in (0, 1)]
+
+
+def scale_chunk(spec, work, sample, chunk):
+    """Chunk ``chunk`` of ``sample``'s reads: (positions, reverse flags, codes (n, READ_LEN)
+    uint8 in reference orientation, 4 = N)."""
+    rng = np.random.default_rng([spec.seed, 12, SCALE_SAMPLES.index(sample), chunk])
+    n = min(spec.chunk_reads, spec.reads - chunk * spec.chunk_reads)
+    which = rng.integers(0, 2, n)
+    pos = rng.integers(0, spec.genome_len - READ_LEN + 1, n)
+    rev = rng.random(n) < 0.5
+    codes = np.empty((n, READ_LEN), np.uint8)
+    for h, hap in enumerate(_haplotypes(work, sample)):
+        sel = which == h
+        codes[sel] = np.lib.stride_tricks.sliding_window_view(hap, READ_LEN)[pos[sel]]
+    flat = codes.reshape(-1)
+    err = rng.integers(0, flat.size, rng.binomial(flat.size, spec.err_rate))
+    flat[err] = (flat[err] + rng.integers(1, 4, err.size, dtype=np.uint8)) % 4
+    flat[rng.integers(0, flat.size, rng.binomial(flat.size, spec.n_rate))] = 4
+    return pos, rev, codes
+
+
+_NIBBLE = np.array([1, 2, 4, 8, 15], np.uint8)  # A C G T N as BAM 4-bit codes
+
+
+def _reg2bin(beg, end):
+    """SAMv1 bin of each [beg, end) interval (numpy; io/bam.py's rule)."""
+    end = end - 1
+    out = np.zeros(beg.shape, np.int64)
+    for shift, first in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        same = (beg >> shift) == (end >> shift)
+        out = np.where(same, first + (beg >> shift), out)
+    return out
+
+
+def bam_chunk_records(tag, digits, first, pos, rev, codes):
+    """The BAM records (uncompressed bytes) of a chunk of reads in one fixed layout: name
+    ``{tag}{index:0{digits}d}`` for the reads ``first``, ``first+1``, ...; reference 0,
+    mapq 60, one M operation, flag 0x10 on reverse reads, sequence ``codes``, no qualities
+    (0xFF), no mate. The same bytes as io/bam.BamWriter writes a record."""
+    n, L = codes.shape
+    nib = _NIBBLE[codes]
+    if L % 2:
+        nib = np.concatenate([nib, np.zeros((n, 1), np.uint8)], axis=1)
+    seq = (nib[:, 0::2] << 4) | nib[:, 1::2]
+    name_len = len(tag) + digits
+    dt = np.dtype([("block_size", "<i4"), ("refid", "<i4"), ("pos", "<i4"),
+                   ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"), ("n_cigar", "<u2"),
+                   ("flag", "<u2"), ("l_seq", "<i4"), ("next_refid", "<i4"),
+                   ("next_pos", "<i4"), ("tlen", "<i4"), ("name", "u1", (name_len + 1,)),
+                   ("cigar", "<u4"), ("seq", "u1", (seq.shape[1],)), ("qual", "u1", (L,))])
+    rec = np.zeros(n, dt)
+    rec["block_size"] = dt.itemsize - 4
+    rec["pos"] = pos
+    rec["l_read_name"] = name_len + 1
+    rec["mapq"] = 60
+    rec["bin"] = _reg2bin(pos, pos + L)
+    rec["n_cigar"] = 1
+    rec["flag"] = np.where(rev, 0x10, 0)
+    rec["l_seq"] = L
+    rec["next_refid"] = -1
+    rec["next_pos"] = -1
+    idx = first + np.arange(n, dtype=np.int64)
+    rec["name"][:, :len(tag)] = np.frombuffer(tag.encode(), np.uint8)
+    rec["name"][:, len(tag):name_len] = (idx[:, None] // 10 ** np.arange(digits - 1, -1, -1)
+                                         % 10 + ord("0"))
+    rec["cigar"] = L << 4
+    rec["seq"] = seq
+    rec["qual"] = 0xFF
+    return rec.tobytes()
+
+
+def bam_header(ref_name, ref_len, text="@HD\tVN:1.6\tSO:unsorted\n"):
+    """BAM header bytes (magic, text, one reference), as io/bam.BamWriter writes them."""
+    t, nb = text.encode(), ref_name.encode() + b"\x00"
+    return (b"BAM\x01" + struct.pack("<i", len(t)) + t + struct.pack("<i", 1)
+            + struct.pack("<i", len(nb)) + nb + struct.pack("<i", ref_len))
+
+
+def bgzf_compress(data, level=1):
+    """``data`` as BGZF blocks of io/bgzf.py's size and layout (no EOF marker)."""
+    from denovo_kmer_tpu_torch.io.bgzf import MAX_BLOCK_UNCOMPRESSED
+
+    view = memoryview(data)
+    out = []
+    for at in range(0, len(view), MAX_BLOCK_UNCOMPRESSED):
+        block = view[at:at + MAX_BLOCK_UNCOMPRESSED]
+        comp = zlib.compressobj(level, zlib.DEFLATED, -15)
+        cdata = comp.compress(block) + comp.flush()
+        out += [struct.pack("<4BIBBHBBHH", 0x1F, 0x8B, 8, 4, 0, 0, 0xFF, 6, 0x42, 0x43, 2,
+                            len(cdata) + 25),
+                cdata, struct.pack("<II", zlib.crc32(block), len(block))]
+    return b"".join(out)
+
+
+def canonical_rows(codes, k):
+    """Host numpy: the canonical k-mer of every N-free window of every row of ``codes``, as
+    (m, 1) uint64 values (k <= 32: one pass along the reads, each base shifted into the
+    forward and reverse-complement values, 8,192 reads at a time so the pass stays in
+    cache) or (m, 2) uint64 (hi, lo) rows (window_words)."""
+    block = 8192
+    n, L = codes.shape
+    P = L - k + 1
+    if k > 32:
+        hi, lo, valid = window_words(codes, k)
+        return np.stack([hi[valid], lo[valid]], axis=1)
+    mask = np.uint64((1 << 2 * k) - 1)
+    two, top = np.uint64(2), np.uint64(2 * (k - 1))
+    vals = np.empty((P, n), np.uint64)
+    for a in range(0, n, block):
+        c = np.ascontiguousarray(np.minimum(codes[a:a + block], 3).T, dtype=np.uint64)
+        rc = (np.uint64(3) - c) << top
+        f = np.zeros(c.shape[1], np.uint64)
+        r = np.zeros(c.shape[1], np.uint64)
+        for j in range(L):
+            f <<= two
+            f |= c[j]
+            f &= mask
+            r >>= two
+            r |= rc[j]
+            if j >= k - 1:
+                np.minimum(f, r, out=vals[j - k + 1, a:a + block])
+    bad = np.zeros((L + 1, n), np.int32)
+    np.cumsum(codes.T == 4, axis=0, dtype=np.int32, out=bad[1:])
+    return vals[(bad[k:k + P] - bad[:P]) == 0][:, None]
+
+
+def bucket_of(rows, n_buckets):
+    """Hash bucket (uint8, n_buckets a power of two <= 256) of each (m, cols) uint64 row."""
+    h = rows[:, 0]
+    for j in range(1, rows.shape[1]):
+        h = h * np.uint64(0xC2B2AE3D27D4EB4F) ^ rows[:, j]
+    return ((h * np.uint64(0x9E3779B97F4A7C15))
+            >> np.uint64(64 - n_buckets.bit_length() + 1)).astype(np.uint8)
+
+
+def _chunk_slots(spec, k):
+    """Rows a chunk may stage in its sample's shared values buffer (every window)."""
+    return spec.chunk_reads * (READ_LEN - k + 1)
+
+
+@contextlib.contextmanager
+def _values(name, spec, k):
+    """A sample's shared values buffer (one slot of ``_chunk_slots`` rows a chunk) as a
+    uint64 (rows, cols) array; the creator (``scale_trio``) unlinks it."""
+    from multiprocessing import shared_memory
+
+    shm = shared_memory.SharedMemory(name=name)
+    arr = np.ndarray((spec.chunks * _chunk_slots(spec, k), 1 if k <= 32 else 2), np.uint64,
+                     buffer=shm.buf)
+    try:
+        yield arr
+    finally:
+        del arr
+        shm.close()
+
+
+def scale_chunk_task(spec, work, values, sample, chunk, k, n_buckets):
+    """A worker's chunk: make its reads, their BAM records as BGZF blocks, and their
+    canonical k-mers grouped by hash bucket into the chunk's slot of the sample's shared
+    values buffer ``values``. → (BGZF bytes, k-mers a bucket, valid windows, seconds a
+    step)."""
+    t = [time.perf_counter()]
+    pos, rev, codes = scale_chunk(spec, work, sample, chunk)
+    t.append(time.perf_counter())
+    digits = len(str(spec.reads - 1))
+    blob = bgzf_compress(bam_chunk_records(sample[0], digits, chunk * spec.chunk_reads, pos,
+                                           rev, codes))
+    t.append(time.perf_counter())
+    rows = canonical_rows(codes, k)
+    del codes
+    t.append(time.perf_counter())
+    bucket = bucket_of(rows, n_buckets)
+    order = np.argsort(bucket, kind="stable")
+    t.append(time.perf_counter())
+    at = chunk * _chunk_slots(spec, k)
+    with _values(values, spec, k) as store:
+        if rows.shape[1] == 1:
+            np.take(rows[:, 0], order, out=store[at:at + rows.shape[0], 0])
+        else:
+            store[at:at + rows.shape[0]] = rows[order]
+    t.append(time.perf_counter())
+    seconds = dict(zip(("reads", "bam", "kmers", "buckets", "store"), np.diff(t)))
+    return blob, np.bincount(bucket, minlength=n_buckets), rows.shape[0], seconds
+
+
+def _bucket_path(work, sample, b, what):
+    return os.path.join(work, f"{sample}.b{b}.{what}.npy")
+
+
+def scale_bucket_task(spec, work, values, sample, b, k, counts):
+    """A worker's bucket: the sample's k-mers of bucket ``b`` from every chunk's slot of the
+    shared values buffer, ``np.unique`` with counts (saved beside the BAMs); for the child
+    also the bucket's candidates (count >= 2, the CLI's --min-child-count, and absent from
+    both parents' bucket ``b``: --tau-parent 0). → {"n": uniques, "windows": their count
+    sum[, "cand_keys", "cand_counts"]}."""
+    slots = _chunk_slots(spec, k)
+    starts = np.cumsum(counts, axis=1) - counts
+    with _values(values, spec, k) as store:
+        rows = np.concatenate([store[c * slots + starts[c, b]:
+                                     c * slots + starts[c, b] + counts[c, b]]
+                               for c in range(counts.shape[0])])
+    if rows.shape[1] == 1:
+        keys, cnt = np.unique(rows[:, 0], return_counts=True)
+        keys = keys[:, None]
+    else:
+        rows = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+        head = np.ones(rows.shape[0], bool)
+        head[1:] = (rows[1:] != rows[:-1]).any(axis=1)
+        at = np.nonzero(head)[0]
+        keys, cnt = rows[at], np.diff(np.append(at, rows.shape[0]))
+    np.save(_bucket_path(work, sample, b, "keys"), keys)
+    np.save(_bucket_path(work, sample, b, "counts"), cnt)
+    out = {"n": keys.shape[0], "windows": int(cnt.sum())}
+    if sample == "child":
+        keep = cnt >= 2
+        for parent in ("mom", "dad"):
+            pk = np.load(_bucket_path(work, parent, b, "keys"))
+            if keys.shape[1] == 1:
+                keep &= ~np.isin(keys[:, 0], pk[:, 0])
+            else:
+                keep &= ~_rows_in(keys, pk)
+        out["cand_keys"], out["cand_counts"] = keys[keep], cnt[keep]
+    return out
+
+
+def scale_trio(spec, work, k=K, n_buckets=SCALE_BUCKETS, workers=None):
+    """Write the trio's BAMs (``work/{sample}.bam``, one reference ``spec.ref_name``) and
+    its hash-bucketed numpy reference on a spawn process pool: chunk tasks make the reads,
+    write their BAM records and put their k-mers, grouped by bucket, into a shared memory
+    buffer a sample (8 B a window); bucket tasks count each bucket (the child's after both
+    parents'). → dict(paths, dnms, child_hap, ref {sample: {"n", "windows"}}, candidates
+    [(value, child count, 0, 0)] ascending, seconds: haplotypes, chunks (until every BAM
+    is written), buckets (the rest), first_chunk (the pool's start and first task), and
+    chunk_task_s (the chunk tasks' seconds by step, summed over workers))."""
+    from multiprocessing import shared_memory
+
+    from denovo_kmer_tpu_torch.io.bgzf import BGZF_EOF
+
+    t0 = time.perf_counter()
+    dnms, child_hap = scale_haplotypes(spec, work)
+    t1 = time.perf_counter()
+    cols = 1 if k <= 32 else 2
+    shms = {s: shared_memory.SharedMemory(create=True, size=spec.chunks * _chunk_slots(spec, k)
+                                          * cols * 8) for s in SCALE_SAMPLES}
+    paths, ref, cands, parts, task_s, first = {}, {}, [], {}, {}, None
+    ctx = multiprocessing.get_context("spawn")
+    try:
+        with concurrent.futures.ProcessPoolExecutor(workers or os.cpu_count(),
+                                                    mp_context=ctx) as pool:
+            chunk_futures = {s: [pool.submit(scale_chunk_task, spec, work, shms[s].name, s, c,
+                                             k, n_buckets) for c in range(spec.chunks)]
+                             for s in SCALE_SAMPLES}
+            bucket_futures = {}
+            for sample in SCALE_SAMPLES:
+                counts, windows = [], 0
+                paths[sample] = os.path.join(work, f"{sample}.bam")
+                with open(paths[sample], "wb") as f:
+                    f.write(bgzf_compress(bam_header(spec.ref_name, spec.genome_len)))
+                    for fut in chunk_futures[sample]:
+                        blob, bcounts, m, sec = fut.result()
+                        first = first or time.perf_counter()
+                        f.write(blob)
+                        counts.append(bcounts)
+                        windows += m
+                        for key, v in sec.items():
+                            task_s[key] = task_s.get(key, 0.0) + v
+                    f.write(BGZF_EOF)
+                ref[sample] = {"windows": windows}
+                if sample == "child":  # its candidates need both parents' buckets
+                    for parent in ("mom", "dad"):
+                        parts[parent] = [f.result() for f in bucket_futures[parent]]
+                bucket_futures[sample] = [
+                    pool.submit(scale_bucket_task, spec, work, shms[sample].name, sample, b, k,
+                                np.stack(counts)) for b in range(n_buckets)]
+            t2 = time.perf_counter()
+            parts["child"] = [f.result() for f in bucket_futures["child"]]
+    finally:
+        for shm in shms.values():
+            shm.close()
+            shm.unlink()
+    for sample in SCALE_SAMPLES:
+        n, held = (sum(p[key] for p in parts[sample]) for key in ("n", "windows"))
+        if held != ref[sample]["windows"]:
+            raise AssertionError(f"{sample}: buckets hold {held} of {ref[sample]['windows']} "
+                                 "windows")
+        ref[sample]["n"] = n
+    keys = np.concatenate([p["cand_keys"] for p in parts["child"]])
+    cnt = np.concatenate([p["cand_counts"] for p in parts["child"]])
+    order = np.lexsort(keys.T[::-1])
+    for row, c in zip(keys[order], cnt[order]):
+        v = int(row[0]) if len(row) == 1 else (int(row[0]) << 64) | int(row[1])
+        cands.append((v, int(c), 0, 0))
+    return dict(paths=paths, dnms=dnms, child_hap=child_hap, ref=ref, candidates=cands,
+                seconds={"haplotypes": t1 - t0, "chunks": t2 - t1,
+                         "buckets": time.perf_counter() - t2, "first_chunk": first - t1,
+                         "chunk_task_s": task_s})
+
+
+def scale_reference_table(work, sample, n_buckets=SCALE_BUCKETS):
+    """A sample's whole reference table from its bucket files: (keys (m, cols) uint64
+    ascending, counts)."""
+    keys = np.concatenate([np.load(_bucket_path(work, sample, b, "keys"))
+                           for b in range(n_buckets)])
+    cnt = np.concatenate([np.load(_bucket_path(work, sample, b, "counts"))
+                          for b in range(n_buckets)])
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], cnt[order]
+
+
+def scale_lookup(work, sample, rows, n_buckets=SCALE_BUCKETS):
+    """The reference counts (0 where absent) of (m, cols) uint64 k-mer rows in a sample's
+    bucket files."""
+    out = np.zeros(rows.shape[0], np.int64)
+    for i, b in enumerate(bucket_of(rows, n_buckets)):
+        keys = np.load(_bucket_path(work, sample, b, "keys"))
+        hit = np.nonzero((keys == rows[i]).all(axis=1))[0]
+        if hit.size:
+            out[i] = np.load(_bucket_path(work, sample, b, "counts"))[hit[0]]
+    return out
+
+
+def dnm_evidence(work, child_hap, site, k=K, n_buckets=SCALE_BUCKETS):
+    """Reference counts (child, mom, dad) of the child's canonical k-mers over a de novo
+    site: why the trio call did or did not report it (a k-mer is a candidate only with
+    child count >= 2 and absent from both parents)."""
+    window = child_hap[site - k + 1:site + k][None, :]
+    rows = canonical_rows(window, k)
+    return {s: scale_lookup(work, s, rows, n_buckets).tolist() for s in SCALE_SAMPLES}
+
+
+def report_text(candidates, k):
+    """The candidate TSV (SPEC_SEMANTICS §7) of (value, child, mom, dad) tuples."""
+    lines = ["#kmer\tchild_count\tmom_count\tdad_count"]
+    for v, c, m, d in candidates:
+        kmer = "".join("ACGT"[(v >> 2 * (k - 1 - j)) & 3] for j in range(k))
+        lines.append(f"{kmer}\t{c}\t{m}\t{d}")
+    return "\n".join(lines) + "\n"
+
+
+class TableSteps:
+    """Device seconds (CUDA events), calls, rows and memory of the table steps of a run
+    (the flushes, the seed, the fused call, the spill's partition and pass calls), taken
+    by wrapping them. Each call's device bytes beyond its inputs and output are taken from
+    the allocator's peak, which is reset at each call; ``peak`` keeps the run's overall
+    peak across those resets."""
+
+    def __init__(self):
+        self.calls = {}
+        self.peak = 0
+
+    def _wrap(self, name, real, rows_of):
+        def wrapped(*a, **kw):
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            res = real(*a, **kw)
+            end.record()
+            extra = torch.cuda.max_memory_allocated() - base - _new_bytes(res, a)
+            self.calls.setdefault(name, []).append((start, end, rows_of(*a, **kw), extra))
+            return res
+        return wrapped
+
+    @contextlib.contextmanager
+    def patched(self):
+        from denovo_kmer_tpu_torch import pipeline
+        from denovo_kmer_tpu_torch.ops import score, spill
+
+        def flush_rows(acc, tab, *_a, **_k):
+            return tab.capacity + acc.slots
+
+        def seed_rows(mom, dad, *_a, **_k):
+            return mom.capacity + dad.capacity
+
+        def window_rows(acc, *_a, **_k):
+            return acc.slots
+
+        def call_rows(tab, *_a, **_k):
+            return tab.capacity
+
+        targets = [(pipeline, "flush", "flush", flush_rows),
+                   (pipeline, "flush_score", "flush_score", flush_rows),
+                   (spill, "flush", "pass_flush", flush_rows),
+                   (score, "flush_score", "pass_flush_score", flush_rows),
+                   (pipeline, "seed_score_table", "seed", seed_rows),
+                   (pipeline, "fused_call_full", "fused_call", flush_rows),
+                   (pipeline, "call_from_score", "pass_call", call_rows),
+                   (spill, "partition_window", "partition", window_rows)]
+        reals = [(mod, attr, getattr(mod, attr)) for mod, attr, _n, _r in targets]
+        for (mod, attr, name, rows_of), (_m, _a, real) in zip(targets, reals):
+            setattr(mod, attr, self._wrap(name, real, rows_of))
+        try:
+            yield self
+        finally:
+            for mod, attr, real in reals:
+                setattr(mod, attr, real)
+
+    def summary(self):
+        """{step: {calls, device_s, rows, max_bytes_per_row}} (synchronizes)."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, calls in self.calls.items():
+            out[name] = {"calls": len(calls),
+                         "device_s": sum(s.elapsed_time(e) for s, e, _r, _b in calls) / 1e3,
+                         "rows": sum(r for _s, _e, r, _b in calls),
+                         "max_bytes_per_row": max(b / max(r, 1) for _s, _e, r, b in calls)}
+        return out
+
+
+def _new_bytes(res, args):
+    """Device bytes of the tensors a step returns that none of its arguments holds (its
+    output tables; a staging buffer handed back is not new)."""
+    seen = set()
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                yield from tensors(y)
+
+    held = {t.untyped_storage().data_ptr() for t in tensors(list(args)) if t.is_cuda}
+    total = 0
+    for t in tensors(res):
+        ptr = t.untyped_storage().data_ptr()
+        if t.is_cuda and ptr not in held and ptr not in seen:
+            seen.add(ptr)
+            total += t.untyped_storage().nbytes()
+    return total
+
+
+@contextlib.contextmanager
+def captured_metrics(out):
+    """Every ``Metrics`` made while inside is appended to ``out`` (the CLI makes its own)."""
+    from denovo_kmer_tpu_torch.utils import metrics
+
+    real = metrics.Metrics
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            out.append(self)
+
+    metrics.Metrics = Recorded
+    try:
+        yield out
+    finally:
+        metrics.Metrics = real
+
+
+def _cli_run(argv):
+    """The CLI in this process: → (stdout, stderr); a non-zero exit fails."""
+    from denovo_kmer_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"CLI {argv[0]} exited {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def scale_call(paths, out, flags, trace=None):
+    """`call` through the CLI on the card with every launch count set to 0 just before and
+    read just after, its table steps timed (``TableSteps``), optionally under a
+    torch.profiler trace written to ``trace``. → dict of the run's numbers."""
+    from denovo_kmer_tpu_torch.io.native import NativeBamFeeder
+
+    argv = ["call", "--mom", paths["mom"], "--dad", paths["dad"], "--child", paths["child"],
+            *SCALE_FLAGS, *flags, "-o", out]
+    steps, metrics = TableSteps(), []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    prof = (torch.profiler.profile(activities=acts) if trace
+            else contextlib.nullcontext())
+    with prof, steps.patched(), captured_metrics(metrics):
+        reset_launches()
+        NativeBamFeeder.batches = 0
+        t0 = time.perf_counter()
+        _, err = _cli_run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        native_batches = NativeBamFeeder.batches
+    peak = max(steps.peak, torch.cuda.max_memory_allocated())
+    auto = re.search(r"accum auto: (\d+) batches/window \((\d+) staging rows; modelled peak "
+                     r"([0-9.]+) GB", err)
+    uniq = re.search(r"uniques mom=(\d+) dad=(\d+) child=(\d+)", err)
+    m = metrics[0]
+    return {"argv": argv[7:], "wall_s": wall, "seconds": dict(m.seconds),
+            "counters": dict(m.counters), "feed_wait_s": m.seconds.get("feed_wait", 0.0),
+            "launches": launches, "native_feeder_batches": native_batches,
+            "peak_device_bytes": peak, "auto_batches": int(auto.group(1)),
+            "auto_window_rows": int(auto.group(2)),
+            "auto_modelled_peak_bytes": float(auto.group(3)) * 1e9,
+            "tables_n": dict(zip(("mom", "dad", "child"), map(int, uniq.groups()))),
+            "steps": steps.summary(),
+            "device": device_time(prof, trace, wall) if trace else None}
+
+
+def phase_scale(work, spec=ScaleSpec()):
+    """Phase 12: the main path at a real size. A chr20-length 30x trio (``ScaleSpec``) is
+    written as BAMs with its hash-bucketed numpy reference; `call` runs on it through the
+    CLI on the card (a) single-pass at table capacity 2^28 and (b) as the 4-pass
+    device-store spill at 2^26, both with --accum-batches auto. (a)'s report must equal the
+    reference's candidates and its tables_n the reference's unique counts, every planted
+    de novo SNV must lie under a candidate unless the reference shows each k-mer over it
+    seen fewer than twice in the child or seen in a parent, (b)'s report must equal (a)'s,
+    each run's extraction must launch once a batch (and the partition once a staging
+    window in (b)), and no table step may hold more device bytes a row than the CLI's auto
+    model counts."""
+    from denovo_kmer_tpu_torch import cli
+
+    sdir = os.path.join(work, "scale")
+    os.makedirs(sdir)
+    t0 = time.perf_counter()
+    data = scale_trio(spec, sdir)
+    t1 = time.perf_counter()
+    want = report_text(data["candidates"], K)
+    batches = 3 * -(-spec.reads // 16384)
+    mem = torch.cuda.get_device_properties(0).total_memory
+    runs = {}
+    for name, flags, trace in (
+            ("a", ["--table-capacity", str(SCALE_CAPACITY)],
+             os.path.join(sdir, "scale_trace.json")),
+            ("b", ["--table-capacity", str(SCALE_SPILL_CAPACITY), "--passes",
+                   str(SCALE_PASSES), "--spill-rows",
+                   str(-(-int(SCALE_SPILL_SLACK * max(r["windows"] for r in
+                                                      data["ref"].values()))
+                         // SCALE_PASSES))], None)):
+        out = os.path.join(sdir, f"{name}.tsv")
+        run = runs[name] = scale_call(data["paths"], out, flags, trace)
+        with open(out) as f:
+            report = f.read()
+        run["candidates"] = report.count("\n") - 1
+        if report != want:
+            raise AssertionError(f"run ({name}): the report differs from the numpy "
+                                 f"reference's {len(data['candidates'])} candidates "
+                                 f"({run['candidates']} rows)")
+        ref_n = {s: r["n"] for s, r in data["ref"].items()}
+        if run["tables_n"] != ref_n:
+            raise AssertionError(f"run ({name}): tables_n {run['tables_n']} != {ref_n}")
+        if run["launches"]["extract_kmers"] != batches or run["native_feeder_batches"] != batches:
+            raise AssertionError(f"run ({name}): {run['launches']} launches, "
+                                 f"{run['native_feeder_batches']} feeder batches for "
+                                 f"{batches} batches")
+        windows = 3 * -(-(batches // 3) // run["auto_batches"])
+        want_part = windows if name == "b" else 0
+        if run["launches"]["radix_partition"] != want_part:
+            raise AssertionError(f"run ({name}): {run['launches']['radix_partition']} "
+                                 f"partition launches, not {want_part}")
+        worst = max(s["max_bytes_per_row"] for s in run["steps"].values())
+        if worst > cli.FLUSH_BYTES_PER_ROW:
+            raise AssertionError(f"run ({name}): a table step held {worst:.1f} B a row > the "
+                                 f"auto model's {cli.FLUSH_BYTES_PER_ROW}")
+        run["peak_share_of_card"] = run["peak_device_bytes"] / mem
+    # a planted site under no candidate must be one the reference explains: each of its
+    # child k-mers seen fewer than twice in the child or seen in a parent (a parent's read
+    # carrying the de novo base by a sequencing error hides the site at tau_parent = 0)
+    missed = {int(p): dnm_evidence(sdir, data["child_hap"], int(p))
+              for p in snvs_missed(data["candidates"], data["child_hap"], data["dnms"])}
+    for p, ev in missed.items():
+        if any(c >= 2 and m == 0 and d == 0
+               for c, m, d in zip(ev["child"], ev["mom"], ev["dad"])):
+            raise AssertionError(f"planted de novo SNV at {p} under no candidate, though a "
+                                 f"k-mer over it is child-only: {ev}")
+    shutil.rmtree(sdir, ignore_errors=True)
+    emit({"phase": "scale", "spec": dataclasses.asdict(spec), "reads_per_sample": spec.reads,
+          "card_bytes": mem, "data_s": t1 - t0, "data_seconds": data["seconds"],
+          "reference": data["ref"], "candidates": len(data["candidates"]),
+          "planted_dnms": spec.dnms, "dnms_recovered": spec.dnms - len(missed),
+          "dnms_hidden": missed,
+          "batches": batches, "runs": runs})
+    return {name: {"launches": r["launches"]} for name, r in runs.items()}
+
+
 def device_time(prof, trace_path, wall_s):
     """Device activity of a profiled run, from its Chrome trace: busy seconds (the union of
     every kernel, copy and memset interval), summed seconds by kind and for the costliest
@@ -3038,6 +3730,7 @@ def main() -> int:
             multihost = phase_multihost(work, main_run)
             phase_table_tools(work, main_run)
             library = phase_library(main_run)
+            scale = phase_scale(work, ScaleSpec(seed=args.seed))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3059,7 +3752,9 @@ def main() -> int:
                "count_mom": ckpt["count_mom"]["launches"],
                "sweep": sweep["launches"], "cohort": cohort["launches"],
                **evidence["launches"], **inputs,
-               **{f"library_{name}": v for name, v in library["launches"].items()}}
+               **{f"library_{name}": v for name, v in library["launches"].items()},
+               "scale_run_trio": scale["a"]["launches"],
+               f"scale_spill_{SCALE_PASSES}": scale["b"]["launches"]}
     standalone = library["extract_fast"][0]  # k=31, canonical
     emit({"kernels": [{
         "name": "extract_kmers", "route": "cuda",

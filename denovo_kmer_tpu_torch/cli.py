@@ -172,10 +172,72 @@ def _profiler(args):
         on_trace_ready=torch.profiler.tensorboard_trace_handler(args.profile_dir))
 
 
+#: Device bytes a row of (table capacity + staging window) that one flush or the fused call
+#: holds beyond its input and output tables: the int64 sort key a row, torch.sort's sorted
+#: keys, permutation, index input and radix scratch, the weight column and its scan
+#: (``ops/table._aggregate_parts``). chip_smoke.py phase 12 measures it on the card and
+#: fails if a flush takes more.
+FLUSH_BYTES_PER_ROW = 56
+#: share of the card's memory that ``--accum-batches auto`` plans for (the rest is the
+#: caching allocator's slack)
+AUTO_MEMORY_SHARE = 0.85
+AUTO_MAX_BATCHES = 128
+
+
+def window_peak(batches: int, capacity: int, k: int, max_read_len: int, batch_reads: int,
+                mesh=(1, 1), passes: int = 1, spill_rows=None) -> int:
+    """The modelled device peak (bytes, per device) of a run whose staging window holds
+    ``batches`` batches. A mesh splits the window over R·T shards and the table over T. A
+    ``KmerTable`` row costs 8W+8 B and a ``ScoreTable`` row 8W+16 B (int64 words and
+    counts), a staged row 4W+1 B, and a flush or the fused call over N rows
+    ``FLUSH_BYTES_PER_ROW``·N beyond its tables (as does the spill's partition of a window).
+    The peak is the largest of: a parent's flush with the other parent resident (three
+    tables), the scoring table's seed over both parents (at twice the capacity), a child
+    flush (the scoring table in and out; the parents are released once it is seeded); with
+    the device-store spill (``passes`` > 1 and ``spill_rows``) the three samples' stores
+    (``ops/spill.alloc_pass_rows`` rows a pass) stay beside the last spill's partition and
+    the counting passes' tables."""
+    from denovo_kmer_tpu_torch.config import words_per_kmer
+    from denovo_kmer_tpu_torch.ops.spill import alloc_pass_rows, spill_capacity
+
+    reads_ax, table_ax = mesh
+    W = words_per_kmer(k)
+    kt, st, row = 8 * W + 8, 8 * W + 16, 4 * W + 1
+    F = FLUSH_BYTES_PER_ROW
+    C = -(-capacity // max(table_ax, 1))
+    S = batches * -(-batch_reads * max(max_read_len - k + 1, 0) // max(reads_ax * table_ax, 1))
+    if passes > 1 and spill_rows is not None:
+        alloc = alloc_pass_rows(-(-spill_rows // S) * S, spill_capacity(S, passes, 1.4), S)
+        stores = 3 * passes * alloc * 4 * W
+        # the last sample's spill: its staging window and partition beside the stores; then
+        # each pass folds store chunks of S rows: dad's with mom's table resident, the
+        # seed (at capacity C) over both, a child flush once the parents are released
+        flush = (C + S) * F
+        return stores + max(S * (row + F), 3 * C * kt + flush,
+                            2 * C * kt + 2 * C * F + C * st, 2 * C * st + flush)
+    flush = (C + S) * F + S * row
+    return max(3 * C * kt + flush, 2 * C * kt + 2 * C * (F + st), 2 * C * st + flush)
+
+
+def auto_window_plan(mem: int, capacity: int, k: int, max_read_len: int, batch_reads: int,
+                     mesh=(1, 1), passes: int = 1, spill_rows=None) -> dict:
+    """``--accum-batches auto`` as a pure function of the card's memory (bytes) and the
+    run's shapes: the most batches a staging window (at most ``AUTO_MAX_BATCHES``) whose
+    ``window_peak`` fits ``AUTO_MEMORY_SHARE`` of ``mem``; at least 1. → {"batches",
+    "window_rows", "peak", "budget"}."""
+    budget = int(mem * AUTO_MEMORY_SHARE)
+    shape = (capacity, k, max_read_len, batch_reads, mesh, passes, spill_rows)
+    n = AUTO_MAX_BATCHES
+    while n > 1 and window_peak(n, *shape) > budget:
+        n -= 1
+    per_batch = -(-batch_reads * max(max_read_len - k + 1, 0) // max(mesh[0] * mesh[1], 1))
+    return {"batches": n, "window_rows": n * per_batch, "peak": window_peak(n, *shape),
+            "budget": budget}
+
+
 def _accum_kwargs(args) -> dict:
-    """--accum-batches: integer, or 'auto' = size the accumulation window from the
-    device's memory: staging costs batch_reads * windows_per_read * (4*words+1) B per
-    batch and the flush sort needs a few times that, so auto budgets ~15% of memory."""
+    """--accum-batches: integer, or 'auto' = the largest staging window whose modelled
+    device peak fits the card (``auto_window_plan``) at the run's table capacity."""
     raw = args.accum_batches
     if str(raw) != "auto":
         return {"accum_batches": int(raw)}
@@ -185,16 +247,14 @@ def _accum_kwargs(args) -> dict:
         mem = torch.cuda.get_device_properties(0).total_memory
     else:
         mem = 4 << 30
-    P = args.max_read_len - args.kmer_size + 1
-    words = -(-2 * args.kmer_size // 32)
-    per_batch = args.batch_reads * P * (4 * words + 1)
-    # staging splits over the mesh: each shard holds 1/(R*T) of a batch
-    reads_ax, table_ax = args.mesh
-    per_batch = -(-per_batch // max(reads_ax * table_ax, 1))
-    n = min(max(int(mem * 0.15 / max(per_batch, 1)), 8), 128)
-    print(f"accum auto: {n} batches/window "
-          f"({n * per_batch / 1e9:.2f} GB staging of {mem / 1e9:.0f} GB)", file=sys.stderr)
-    return {"accum_batches": n}
+    plan = auto_window_plan(mem, args.table_capacity, args.kmer_size, args.max_read_len,
+                            args.batch_reads, tuple(args.mesh), getattr(args, "passes", 1),
+                            getattr(args, "spill_rows", None))
+    print(f"accum auto: {plan['batches']} batches/window ({plan['window_rows']} staging "
+          f"rows; modelled peak {plan['peak'] / 1e9:.2f} GB of a {plan['budget'] / 1e9:.2f} GB "
+          f"budget = {AUTO_MEMORY_SHARE:.0%} of {mem / 1e9:.0f} GB, table capacity "
+          f"{args.table_capacity}, {FLUSH_BYTES_PER_ROW} B a flush row)", file=sys.stderr)
+    return {"accum_batches": plan["batches"]}
 
 
 def _cfg_from_args(args) -> EngineConfig:

@@ -128,10 +128,9 @@ def run_cohort(
                         f"parental superset overflow at trio {trio.name} ({parent}): "
                         f"{n_sup} > {cfg.table_capacity}; rerun with a larger "
                         "--table-capacity")
-        cands, child_uniques = score_child(cfg, dev, tables["mom"], tables["dad"],
-                                           trio.child, m, region, append_packed=step)
-        tables_n = {"mom": int(tables["mom"].n), "dad": int(tables["dad"].n),
-                    "child": child_uniques}
+        tables_n = {name: int(t.n) for name, t in tables.items()}
+        cands, tables_n["child"] = score_child(cfg, dev, tables, trio.child, m, region,
+                                               append_packed=step)
         results[trio.name] = _trio_result(_candidate_parts(cands), cfg.k, m, tables_n)
         m.count("trios", 1)
     if superset is not None:

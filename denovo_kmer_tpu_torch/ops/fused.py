@@ -33,9 +33,12 @@ from denovo_kmer_tpu_torch.ops.score import ScoreTable, check_call_args
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, staged_valid
 from denovo_kmer_tpu_torch.ops.table import (
     PAD,
-    group_heads,
-    lex_argsort,
-    sort_keys,
+    _group_sums,
+    _rows_device,
+    _rows_shape,
+    _sorted_groups,
+    _unpack_sort_keys,
+    group_heads,  # noqa: F401  (the JAX module's public name)
     u32,
     valid_rows,
 )
@@ -156,61 +159,53 @@ def fused_supported(k: int) -> bool:
     return (2 * k) % 32 != 0
 
 
+def _call_parts(parts, tau_parent: int, min_child_count: int):
+    """The trio call on the rows of ``parts`` ((rows, valid, [child-count weights, parental
+    packs]) blocks, ``table._aggregate_parts``'s form): one key sort, group starts, and each
+    group's sums of both columns, wrapped to 32 bits as JAX's uint32 adds wrap. Returns
+    device tensors (candidate keys (n, W), child, momc, dadc (n,)) ascending by key, and the
+    counts of distinct real keys and of those with child count >= 1 (0-dim)."""
+    N = sum(_rows_shape(rows)[0] for rows, _v, _w in parts)
+    W = _rows_shape(parts[0][0])[1]
+    if N == 0:
+        dev = _rows_device(parts[0][0])
+        z = torch.zeros((0,), dtype=torch.int64, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return z.reshape(0, W), z, z, z, zero, zero
+    s_keys, perm, starts = _sorted_groups(parts)
+    U = starts.shape[0]
+    child, _ = _group_sums(parts, 0, perm, starts, U, N)
+    pcsum, _ = _group_sums(parts, 1, perm, starts, U, N)
+    del perm
+    words = _unpack_sort_keys([k[starts] for k in s_keys], W)
+    del s_keys, starts
+    momc = pcsum & _SAT
+    dadc = pcsum >> 16
+    real = words[0] != PAD
+    has_child = real & (child >= 1)
+    flags = has_child & (child >= min_child_count) & (momc <= tau_parent) & (dadc <= tau_parent)
+    cand_keys = torch.stack([w[flags] for w in words], dim=1)
+    return cand_keys, child[flags], momc[flags], dadc[flags], real.sum(), has_child.sum()
+
+
 def call_rows(words, cnt: torch.Tensor, pc: torch.Tensor, tau_parent: int,
               min_child_count: int):
     """The trio call on an unsorted stream of rows: key ``words`` (W int64 columns, invalid
     rows already set to the padding key), child-count weights ``cnt`` and parental packs
-    ``pc`` (0 on invalid rows). One key sort, group heads, and each group's sums of both
-    columns, wrapped to 32 bits as JAX's uint32 adds wrap. Returns device tensors
-    (candidate keys (n, W), child, momc, dadc (n,)) ascending by key, and the counts of
-    distinct real keys and of those with child count >= 1 (0-dim)."""
-    dev = cnt.device
-    N = cnt.shape[0]
-    keys = sort_keys(words)
-    perm = lex_argsort(keys)
-    head = group_heads([k[perm] for k in keys])
-    del keys
-    heads = torch.nonzero(head).squeeze(1)  # host sync: the call's one fetch follows
-    ends = torch.cat([heads[1:], torch.tensor([N], device=dev)])
-
-    def group_sums(col):
-        csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                          torch.cumsum(col[perm], 0)])
-        return (csum[ends] - csum[heads]) & _M32
-
-    child = group_sums(cnt)
-    pcsum = group_sums(pc)
-    momc = pcsum & _SAT
-    dadc = pcsum >> 16
-
-    src = perm[heads]  # input row of each group's head
-    real = words[0][src] != PAD
-    has_child = real & (child >= 1)
-    flags = has_child & (child >= min_child_count) & (momc <= tau_parent) & (dadc <= tau_parent)
-    sel = src[flags]
-    cand_keys = torch.stack([w[sel] for w in words], dim=1)
-    return cand_keys, child[flags], momc[flags], dadc[flags], real.sum(), has_child.sum()
+    ``pc`` (0 on invalid rows). Returns device tensors (candidate keys (n, W), child, momc,
+    dadc (n,)) ascending by key, and the counts of distinct real keys and of those with
+    child count >= 1 (0-dim); see ``_call_parts``."""
+    return _call_parts([(list(words), None, [cnt, pc])], tau_parent, min_child_count)
 
 
 def _call_stream(acc: KmerAccumulator, tab: ScoreTable, tau_parent: int,
                  min_child_count: int):
-    """``call_rows`` on the (score table ∪ staging) stream of the final window."""
+    """The trio call on the (score table ∪ staging) stream of the final window: staged rows
+    weigh 1 and table rows their carried count; the parental pack rides on table rows."""
     check_call_args(tau_parent, min_child_count)
-    C, W = tab.keys.shape
-    S = acc.slots
-    dev = tab.keys.device
-    valid = torch.cat([valid_rows(tab.n, C), staged_valid(acc)])
-    rows = torch.cat([tab.keys, u32(acc.kmers)])
-    words = [torch.where(valid, rows[:, w], PAD) for w in range(W)]
-    del rows
-    # staged rows weigh 1 and table rows their carried count; the pack rides on table rows
-    cnt = torch.where(
-        valid, torch.cat([tab.counts, torch.ones((S,), dtype=torch.int64, device=dev)]), 0
-    )
-    pc = torch.where(
-        valid, torch.cat([tab.pcounts, torch.zeros((S,), dtype=torch.int64, device=dev)]), 0
-    )
-    return call_rows(words, cnt, pc, tau_parent, min_child_count)
+    return _call_parts([(tab.keys, valid_rows(tab.n, tab.capacity), [tab.counts, tab.pcounts]),
+                        (acc.kmers, staged_valid(acc), [1, 0])],
+                       tau_parent, min_child_count)
 
 
 def fused_flush_call(

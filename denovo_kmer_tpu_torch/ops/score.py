@@ -21,10 +21,9 @@ import torch
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, staged_valid
 from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
-    _aggregate_multi,
+    _aggregate_parts,
     _sticky_overflow_n,
     empty_table,
-    u32,
     valid_rows,
 )
 from denovo_kmer_tpu_torch.ops.trio import Candidates
@@ -73,14 +72,20 @@ def empty_score_table(capacity: int, words: int, device=None) -> ScoreTable:
     return ScoreTable(keys=t.keys, counts=t.counts, pcounts=t.counts.clone(), n=t.n)
 
 
+def _score_aggregate(parts, capacity: int, *input_overflows) -> ScoreTable:
+    """``_aggregate_parts`` of (rows, valid, [child count, parental pack]) blocks as a
+    ScoreTable; an overflow of any input stays sticky (see table.merge_tables)."""
+    k, cols, n = _aggregate_parts(parts, capacity)
+    return ScoreTable(keys=k, counts=cols[0], pcounts=cols[1],
+                      n=_sticky_overflow_n(n, capacity, *input_overflows))
+
+
 def seed_score_table(mom: KmerTable, dad: KmerTable, capacity: int) -> ScoreTable:
     """Union of the parental tables as a scoring table: child counts 0, pcounts packed."""
-    keys = torch.cat([mom.keys, dad.keys])
-    zeros = torch.zeros((keys.shape[0],), dtype=torch.int64, device=keys.device)
-    pc = torch.cat([mom.counts.clamp(max=_SAT), dad.counts.clamp(max=_SAT) << 16])
-    valid = torch.cat([valid_rows(mom.n, mom.capacity), valid_rows(dad.n, dad.capacity)])
-    k, cols, n = _aggregate_multi(keys, [zeros, pc], valid, capacity)
-    return ScoreTable(keys=k, counts=cols[0], pcounts=cols[1], n=n)
+    return _score_aggregate(
+        [(mom.keys, valid_rows(mom.n, mom.capacity), [0, mom.counts.clamp(max=_SAT)]),
+         (dad.keys, valid_rows(dad.n, dad.capacity), [0, dad.counts.clamp(max=_SAT) << 16])],
+        capacity)
 
 
 def flush_score(
@@ -93,31 +98,21 @@ def flush_score(
     ``out_capacity`` (default: same as input) lets a pipeline seed at a tight
     |mom ∪ dad| capacity and grow to the full table capacity on the first flush."""
     C = tab.capacity
-    S = acc.slots
-    dev = tab.keys.device
-    kmers = torch.cat([tab.keys, u32(acc.kmers)])
-    cnt_col = torch.cat([tab.counts, torch.ones((S,), dtype=torch.int64, device=dev)])
-    pc_col = torch.cat([tab.pcounts, torch.zeros((S,), dtype=torch.int64, device=dev)])
-    valid = torch.cat([valid_rows(tab.n, C), staged_valid(acc)])
-
-    cap_out = out_capacity or C
-    k, cols, n = _aggregate_multi(kmers, [cnt_col, pc_col], valid, cap_out)
     # overflow is sticky across flushes (see table.merge_tables)
-    n = _sticky_overflow_n(n, cap_out, tab.n > C)
-    return acc._replace(fill=0), ScoreTable(keys=k, counts=cols[0], pcounts=cols[1], n=n)
+    out = _score_aggregate([(tab.keys, valid_rows(tab.n, C), [tab.counts, tab.pcounts]),
+                            (acc.kmers, staged_valid(acc), [1, 0])],
+                           out_capacity or C, tab.n > C)
+    return acc._replace(fill=0), out
 
 
 def merge_score_tables(a: ScoreTable, b: ScoreTable, capacity: int) -> ScoreTable:
     """Merge two scoring tables (both weight columns add, wrapped to 32 bits). The parental
     pack stays exact because each key's seed lives in one input only; overflow of either
     input is sticky (see table.merge_tables)."""
-    keys = torch.cat([a.keys, b.keys])
-    cnt = torch.cat([a.counts, b.counts])
-    pc = torch.cat([a.pcounts, b.pcounts])
-    valid = torch.cat([valid_rows(a.n, a.capacity), valid_rows(b.n, b.capacity)])
-    k, cols, n = _aggregate_multi(keys, [cnt, pc], valid, capacity)
-    n = _sticky_overflow_n(n, capacity, a.n > a.capacity, b.n > b.capacity)
-    return ScoreTable(keys=k, counts=cols[0], pcounts=cols[1], n=n)
+    return _score_aggregate(
+        [(a.keys, valid_rows(a.n, a.capacity), [a.counts, a.pcounts]),
+         (b.keys, valid_rows(b.n, b.capacity), [b.counts, b.pcounts])],
+        capacity, a.n > a.capacity, b.n > b.capacity)
 
 
 def check_call_args(tau_parent: int, min_child_count: int) -> None:

@@ -20,9 +20,9 @@ import torch
 
 from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
-    _aggregate,
+    _aggregate_parts,
     _sticky_overflow_n,
-    u32,
+    valid_rows,
 )
 from denovo_kmer_tpu_torch.utils.device import resolve_device
 
@@ -76,18 +76,12 @@ def staged_valid(acc: KmerAccumulator) -> torch.Tensor:
 def flush(acc: KmerAccumulator, table: KmerTable) -> Tuple[KmerAccumulator, KmerTable]:
     """Aggregate the staging buffer and merge it into the table; reset the buffer.
 
-    One sort over (S + C) rows via concat-aggregate: table entries join the sort as
-    pre-weighted rows, so flush is a single ``_aggregate`` call.
-    """
+    One sort over (S + C) rows: table entries join the sort as pre-weighted rows and staged
+    rows weigh 1, so flush is a single aggregate (``_aggregate_parts``, which never
+    concatenates the rows themselves)."""
     C = table.capacity
-    S = acc.slots
-    kmers = torch.cat([table.keys, u32(acc.kmers)], dim=0)
-    weights = torch.cat(
-        [table.counts, torch.ones((S,), dtype=torch.int64, device=table.counts.device)]
-    )
-    tslot = torch.arange(C, device=table.keys.device)
-    valid = torch.cat([tslot < table.n, staged_valid(acc)])
-    new_table = _aggregate(kmers, weights, valid, C)
+    keys, cols, n = _aggregate_parts([(table.keys, valid_rows(table.n, C), [table.counts]),
+                                      (acc.kmers, staged_valid(acc), [1])], C)
     # overflow is sticky across flushes: a past drop must surface at the final host check
-    new_table = new_table._replace(n=_sticky_overflow_n(new_table.n, C, table.n > C))
+    new_table = KmerTable(keys=keys, counts=cols[0], n=_sticky_overflow_n(n, C, table.n > C))
     return acc._replace(fill=0), new_table

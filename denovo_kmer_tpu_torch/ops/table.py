@@ -85,13 +85,7 @@ def sort_keys(words: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     lexicographic order of the uint32 ``words``: word pairs pack into one int64 as
     ``((hi << 32) | lo) ^ (1 << 63)`` (the sign flip keeps the all-ones padding LAST); an odd
     leading word stays a plain non-negative int64."""
-    keys = []
-    start = len(words) % 2
-    if start:
-        keys.append(words[0])
-    for j in range(start, len(words), 2):
-        keys.append(((words[j] << 32) | words[j + 1]) ^ _SIGN)
-    return keys
+    return _part_sort_keys(list(words), None)
 
 
 def lex_argsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -116,69 +110,172 @@ def group_heads(s_words: Sequence[torch.Tensor]) -> torch.Tensor:
     return head
 
 
+def _pad_sort_keys(W: int) -> List[int]:
+    """``sort_keys`` of the all-ones (padding) key of W words: the largest value each key
+    takes, so the padding sorts last."""
+    return ([PAD] if W % 2 else []) + [(1 << 63) - 1] * (W // 2)
+
+
+def _part_sort_keys(rows, valid) -> List[torch.Tensor]:
+    """``sort_keys`` of a block of key rows ((n, W) int64 uint32 values or int32 bits, or a
+    list of W word columns), rows where ``valid`` is False (None: every row is valid) set
+    to the padding's keys. Built in place: at most three (n,) int64 temporaries live."""
+    cols = list(rows) if isinstance(rows, (list, tuple)) else [rows[:, w]
+                                                              for w in range(rows.shape[1])]
+    W = len(cols)
+    keys = [u32(cols[0])] if W % 2 else []
+    for j in range(W % 2, W, 2):
+        key = u32(cols[j])
+        key <<= 32
+        key |= u32(cols[j + 1])
+        key ^= _SIGN
+        keys.append(key)
+    if valid is not None:
+        for key, pad in zip(keys, _pad_sort_keys(W)):
+            key.masked_fill_(~valid, pad)
+    return keys
+
+
+def _unpack_sort_keys(keys: Sequence[torch.Tensor], W: int) -> List[torch.Tensor]:
+    """The W uint32 word columns (int64) of ``sort_keys`` values (inverse of ``sort_keys``)."""
+    words = [keys[0]] if W % 2 else []
+    for key in keys[W % 2:]:
+        key = key ^ _SIGN
+        words += [(key >> 32) & _M32, key & _M32]
+    return words
+
+
+def _filled(parts, N: int, col: int, dev) -> torch.Tensor:
+    """Weight column ``col`` of ``parts`` as one (N,) int64 tensor, 0 on invalid rows; a
+    part's weight is a (n,) tensor or an int for every row."""
+    out = torch.empty((N,), dtype=torch.int64, device=dev)
+    at = 0
+    for rows, valid, weights in parts:
+        n = _rows_shape(rows)[0]
+        w = weights[col]
+        seg = out[at:at + n]
+        if isinstance(w, torch.Tensor):
+            seg.copy_(w)
+        else:
+            seg.fill_(w)
+        if valid is not None:
+            seg.masked_fill_(~valid, 0)
+        at += n
+    return out
+
+
+def _rows_shape(rows) -> Tuple[int, int]:
+    """(n, W) of a block of key rows: an (n, W) tensor or a list of W (n,) columns."""
+    if isinstance(rows, (list, tuple)):
+        return rows[0].shape[0], len(rows)
+    return rows.shape[0], rows.shape[1]
+
+
+def _rows_device(rows) -> torch.device:
+    return (rows[0] if isinstance(rows, (list, tuple)) else rows).device
+
+
+def _sorted_groups(parts):
+    """One key sort over the rows of ``parts`` ((rows, valid, weights) blocks, see
+    ``_part_sort_keys``): → (sorted sort keys, the permutation, the sorted row where each
+    group of equal keys starts, ascending). Invalid rows carry the padding key, so they
+    sort last. One host sync (the group count). Memory: the (N,) int64 sort key, the
+    sort's output, permutation and scratch; nothing of width W."""
+    N = sum(_rows_shape(rows)[0] for rows, _v, _w in parts)
+    keys = None
+    at = 0
+    for rows, valid, _w in parts:
+        part = _part_sort_keys(rows, valid)
+        if keys is None:
+            keys = [torch.empty((N,), dtype=torch.int64, device=part[0].device)
+                    for _ in part]
+        n = part[0].shape[0]
+        for key, pk in zip(keys, part):
+            key[at:at + n] = pk
+        del part
+        at += n
+    if len(keys) == 1:
+        s_key, perm = torch.sort(keys.pop(), stable=True)
+        s_keys = [s_key]
+    else:
+        perm = lex_argsort(keys)
+        s_keys = [k[perm] for k in keys]
+    del keys
+    starts = torch.nonzero(group_heads(s_keys)).squeeze(1)
+    return s_keys, perm, starts
+
+
+def _group_sums(parts, col: int, perm, starts, take: int, N: int):
+    """Sums of weight column ``col`` over the first ``take`` groups and over the last group,
+    wrapped to 32 bits: prefix differences of an int64 scan of the column in sorted
+    order."""
+    dev = perm.device
+    g = _filled(parts, N, col, dev)[perm]
+    g.cumsum_(0)
+    st = starts[:take]
+    en = torch.cat([starts[1:take + 1],
+                    torch.full((1,), N, dtype=torch.int64, device=dev)])[:take]
+    before = g[(st - 1).clamp(min=0)]
+    before[st == 0] = 0
+    sums = (g[en - 1] - before) & _M32
+    last0 = starts[-1:]
+    last = (g[N - 1:] - torch.where(last0 > 0, g[(last0 - 1).clamp(min=0)], 0)) & _M32
+    return sums, last[0]
+
+
+def _aggregate_parts(parts, capacity: int):
+    """Sort the rows of ``parts`` ((rows, valid, weights) blocks; see ``_part_sort_keys``
+    and ``_filled``) by key, group equal keys and sum each weight column per group.
+
+    Returns (keys (capacity, W), cols [(capacity,) ...], n): the same result as the JAX
+    ``_aggregate_multi`` over the concatenated blocks. Invalid rows take the all-ones key
+    with weight 0, so they sort last and either join a real all-ones k-mer's group (adding
+    0) or form one weight-0 group that is stripped; group sums are prefix differences taken
+    in int64 and wrapped to 32 bits, which equals JAX's uint32 prefix differences. ``n`` is
+    the true unique count; if it exceeds ``capacity`` the overflow groups are dropped
+    (callers check host-side). The rows are never concatenated: the sort runs on one int64
+    key a row, and the output keys are unpacked from the sorted keys."""
+    n_cols = len(parts[0][2])
+    N = sum(_rows_shape(rows)[0] for rows, _v, _w in parts)
+    W = _rows_shape(parts[0][0])[1]
+    if N == 0:
+        t = empty_table(capacity, W, _rows_device(parts[0][0]))
+        return t.keys, [t.counts.clone() for _ in range(n_cols)], t.n
+    s_keys, perm, starts = _sorted_groups(parts)
+    dev = perm.device
+    U = starts.shape[0]
+    take = min(U, capacity)
+    out_keys = torch.full((capacity, W), PAD, dtype=torch.int64, device=dev)
+    for w, col in enumerate(_unpack_sort_keys([k[starts[:take]] for k in s_keys], W)):
+        out_keys[:take, w] = col
+    # strip the all-zero-weight all-ones last group formed by invalid rows (if any); a
+    # *real* all-ones k-mer group has some weight >= 1 and is kept. A stripped group's
+    # row already reads as padding (all-ones key, weights 0).
+    strip = torch.ones((), dtype=torch.bool, device=dev)
+    for k, pad in zip(s_keys, _pad_sort_keys(W)):
+        strip &= k[N - 1] == pad
+    del s_keys
+    cols = []
+    for c in range(n_cols):
+        sums, last = _group_sums(parts, c, perm, starts, take, N)
+        col = torch.zeros((capacity,), dtype=torch.int64, device=dev)
+        col[:take] = sums
+        cols.append(col)
+        strip &= last == 0
+    n_unique = U - strip.to(torch.int64)
+    return out_keys, cols, n_unique
+
+
 def _aggregate_multi(
     kmers: torch.Tensor,  # (N, W) int64 uint32 values
     weight_cols: Sequence[torch.Tensor],  # (N,) int64 uint32 values — summed per group
     valid: torch.Tensor,  # (N,) bool
     capacity: int,
 ):
-    """Sort (invalid-last), group equal keys, sum each weight column per group.
-
-    Returns (keys (capacity, W), cols [(capacity,) ...], n). Same result as the JAX
-    ``_aggregate_multi``: invalid rows become the all-ones key with weight 0, so they sort
-    last and either join a real all-ones k-mer's group (adding 0) or form one weight-0 group
-    that is stripped; group sums are prefix differences taken in int64 and wrapped to 32
-    bits, which equals JAX's uint32 prefix differences. ``n`` is the true unique count; if
-    it exceeds ``capacity`` the overflow groups are dropped (callers check host-side).
-    """
-    N, W = kmers.shape
-    dev = kmers.device
-    if N == 0:
-        t = empty_table(capacity, W, dev)
-        return t.keys, [t.counts.clone() for _ in weight_cols], t.n
-    words = [torch.where(valid, kmers[:, w], PAD) for w in range(W)]
-    wts = [torch.where(valid, wc, 0) for wc in weight_cols]
-    keys = sort_keys(words)
-    perm = lex_argsort(keys)
-    s_keys = [k[perm] for k in keys]
-    head = group_heads(s_keys)
-    n_unique = head.sum()
-
-    # starts[j] = sorted row where group j begins; N for every j >= n_unique, so that
-    # group j spans [starts[j], starts[j+1]) for every j
-    L = max(N, capacity)
-    idx = torch.arange(N, device=dev)
-    seg = torch.cumsum(head, 0) - 1
-    starts = torch.full((L + 2,), N, dtype=torch.int64, device=dev)
-    starts.index_copy_(0, torch.where(head, seg, L + 1), idx)
-    starts = starts[: L + 1]
-    first = starts[:L].clamp(max=N - 1)
-
-    cols = []
-    for wc in wts:
-        csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                          torch.cumsum(wc[perm], 0)])
-        cols.append((csum[starts[1:]] - csum[starts[:-1]]) & _M32)
-    out_words = [w[perm][first] for w in words]
-
-    # strip the all-zero-weight all-ones tail group formed by invalid rows (if any); a
-    # *real* all-ones k-mer group has some weight >= 1 and is kept
-    last = (n_unique - 1).clamp(min=0).reshape(1)
-    last_ones = torch.ones((1,), dtype=torch.bool, device=dev)
-    for w in out_words:
-        last_ones &= w.index_select(0, last) == PAD
-    last_zero = torch.ones((1,), dtype=torch.bool, device=dev)
-    for c in cols:
-        last_zero &= c.index_select(0, last) == 0
-    strip = (n_unique > 0) & last_ones[0] & last_zero[0]
-    n_unique = n_unique - strip.to(torch.int64)
-
-    in_range = torch.arange(capacity, device=dev) < n_unique.clamp(max=capacity)
-    out_keys = torch.stack(
-        [torch.where(in_range, w[:capacity], PAD) for w in out_words], dim=1
-    )
-    cols = [torch.where(in_range, c[:capacity], 0) for c in cols]
-    return out_keys, cols, n_unique
+    """Sort (invalid-last), group equal keys, sum each weight column per group: the JAX
+    ``_aggregate_multi`` (see ``_aggregate_parts``, of one block). Returns (keys (capacity,
+    W), cols [(capacity,) ...], n)."""
+    return _aggregate_parts([(kmers, valid, list(weight_cols))], capacity)
 
 
 def _aggregate(kmers, weights, valid, capacity: int) -> KmerTable:
@@ -211,13 +308,11 @@ def valid_rows(n: torch.Tensor, capacity: int) -> torch.Tensor:
 
 def merge_tables(a: KmerTable, b: KmerTable, capacity: int) -> KmerTable:
     """Merge two tables (count addition) into a table of the given capacity."""
-    keys = torch.cat([a.keys, b.keys])
-    wts = torch.cat([a.counts, b.counts])
-    valid = torch.cat([valid_rows(a.n, a.capacity), valid_rows(b.n, b.capacity)])
-    out = _aggregate(keys, wts, valid, capacity)
-    return out._replace(
-        n=_sticky_overflow_n(out.n, capacity, a.n > a.capacity, b.n > b.capacity)
-    )
+    keys, cols, n = _aggregate_parts([(a.keys, valid_rows(a.n, a.capacity), [a.counts]),
+                                      (b.keys, valid_rows(b.n, b.capacity), [b.counts])],
+                                     capacity)
+    return KmerTable(keys=keys, counts=cols[0],
+                     n=_sticky_overflow_n(n, capacity, a.n > a.capacity, b.n > b.capacity))
 
 
 def ingest_batch(table: KmerTable, kmers: torch.Tensor, valid: torch.Tensor,

@@ -375,9 +375,9 @@ class ScoringTableBuilder:
         seed = seed_score_table(mom, dad, mom.capacity + dad.capacity)
         n_seed = int(seed.n)  # one host sync, before streaming starts
         cap2 = max(1 << (max(n_seed, 1) - 1).bit_length(), 1024)
-        if cap2 < seed.capacity:
-            seed = ScoreTable(keys=seed.keys[:cap2], counts=seed.counts[:cap2],
-                              pcounts=seed.pcounts[:cap2], n=seed.n)
+        if cap2 < seed.capacity:  # copies, so the (mom + dad)-row seed is freed
+            seed = ScoreTable(keys=seed.keys[:cap2].clone(), counts=seed.counts[:cap2].clone(),
+                              pcounts=seed.pcounts[:cap2].clone(), n=seed.n)
 
         def flush_fn(acc, state):
             table, flushed = state
@@ -726,20 +726,19 @@ def run_trio(
     dev = resolve_device(device)
     m = metrics or Metrics()
     tables = _parent_tables(mom_path, dad_path, cfg, m, region, dev)
-
-    cands, child_uniques = score_child(cfg, dev, tables["mom"], tables["dad"], child_path, m,
-                                       region)
-    tables_n = {"mom": int(tables["mom"].n), "dad": int(tables["dad"].n),
-                "child": child_uniques}
+    tables_n = {name: int(t.n) for name, t in tables.items()}
+    cands, tables_n["child"] = score_child(cfg, dev, tables, child_path, m, region)
     return _trio_result(_candidate_parts(cands), cfg.k, m, tables_n)
 
 
-def score_child(cfg: EngineConfig, dev: torch.device, mom: KmerTable, dad: KmerTable,
+def score_child(cfg: EngineConfig, dev: torch.device, parents: Dict[str, KmerTable],
                 child_path: str, m: Metrics, region: Optional[str] = None,
                 append_packed=None, bucket_steps=None) -> Tuple[Candidates, int]:
     """The child against its parents' tables: the parent-seeded scored build (ops/score.py),
     whose final window runs the one-sort fused flush+call (ops/fused.py) where the k
     geometry allows it, else the compacting build (unbucketed) and ``call_from_score``.
+    ``parents`` holds the "mom" and "dad" tables and is emptied once the scoring table is
+    seeded, so neither parental table stays on the device through the child's stream.
     ``append_packed`` and ``bucket_steps`` override the config's ingest steps (a multipass
     pass's filtered steps). → (candidates, child uniques)."""
     scorer = ScoringTableBuilder(cfg, dev, append_packed)
@@ -750,8 +749,8 @@ def score_child(cfg: EngineConfig, dev: torch.device, mom: KmerTable, dad: KmerT
     child_batches = (_bucketed_stream(child_path, cfg, region) if bucket_steps
                      else packed_batches(child_path, cfg, region))
     with m.timer("build_child"):
-        lane = scorer.child_lane(mom, dad, bucket_steps)
-        _fold_placed(child_batches, cfg, dev, [lane], m, bucketed=bucket_steps is not None)
+        lane = scorer.child_lane(parents.pop("mom"), parents.pop("dad"), bucket_steps)
+        _fold_placed(child_batches, cfg, dev, [lane], m, bucket_steps is not None)
         cands, child_uniques = scorer.finish(lane, m)
     m.event("table_built", sample="child", unique=child_uniques)
     return cands, child_uniques
@@ -866,8 +865,8 @@ def run_trio_multipass(
                 with m.timer(f"build_{name}"):
                     ptables[name] = build_sample_table(path, cfg, m, pass_step, region, dev)
             tables_n[name] += int(ptables[name].n)
-        cands, n_child = score_child(cfg, dev, ptables["mom"], ptables["dad"], child_path, m,
-                                     region, pass_step, pass_bucket_steps)
+        cands, n_child = score_child(cfg, dev, ptables, child_path, m, region, pass_step,
+                                     pass_bucket_steps)
         tables_n["child"] += n_child
         parts.append(_candidate_parts(cands))
         n = parts[-1][0].shape[0]
@@ -1037,6 +1036,7 @@ def run_trio_spill(
             tables_n["mom"] += n_m
             tables_n["dad"] += n_d
             stab = seed_score_table(mom_p, dad_p, C)
+            del mom_p, dad_p  # only the scoring table is read from here on
             sp = spills["child"]
             if isinstance(sp, HostSpill):
                 for rows, take in host_chunks(sp, p):
@@ -1048,6 +1048,7 @@ def run_trio_spill(
             cands = call_from_score(stab, cfg.tau_parent, cfg.min_child_count)
             parts.append(_candidate_parts(cands))
             n = parts[-1][0].shape[0]
+            del stab, cands  # freed before the next pass builds its tables
         m.event("pass_done", pass_id=p, candidates=n)
     return _merge_pass_results(parts, cfg, m, tables_n)
 
