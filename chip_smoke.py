@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA card (sm_90a, nvcc under
 /usr/local/cuda or $CUDA_HOME) and g++ with zlib. It starts six worker processes (phase
-8's CRAM and sorted-BAM writers), one a CPU core (phase 12's data and reference), an HTTP
+8's CRAM and sorted-BAM writers), one a CPU core (phases 12's and 13's references), an HTTP
 server thread on 127.0.0.1 and three pairs of
 spawned ranks (phase 10, a gloo process group on 127.0.0.1), and stops them all. It exits
 non-zero, printing no result, without a card or without the package beside it. Phases,
@@ -74,7 +74,8 @@ each printed as one JSON line:
               after its first saved cursor and resumed equals the uninterrupted one;
               run_trio with both .npz parents equals phase 4's report; `probe` of 1,000
               k-mers (candidates and random parental k-mers) prints the reference's counts.
-              Then a mixed-length trio (phase 4's reads trimmed to 60-151 bp): run_trio, and
+              Then a mixed-length trio (the first 65,536 of phase 4's reads a sample, a
+              quarter of its depth, trimmed to 60-151 bp): run_trio, and
               with read_len_buckets (64, 112, 160) run_trio, the device-store spill (4
               passes) and the 2-pass re-decode, each equal to the unbucketed run_trio.
 7. sweep, cohort, evidence_sites — the same BAMs and config: run_trio_multi_k at k in
@@ -133,21 +134,24 @@ each printed as one JSON line:
 
 10. multihost, table_tools — parallel/multihost.run_trio_multihost in 2 spawned processes,
               a gloo process group named explicitly (NCCL refuses two ranks on one GPU),
-              each rank on four copies of cuda:0, at phase 4's BAMs and config: (a) a 2x4
+              each rank on four copies of cuda:0, at phase 4's config on a quarter of its
+              depth (the first 65,536 reads of each sample, written as BAMs of their own,
+              with their own numpy reference; the whole depth took ~145 s): (a) a 2x4
               mesh with the stripe feed (the reads axis spans the ranks, the table axis
               stays inside each), rank 0 under a torch.profiler trace; (b) the range feed;
               (c) a (1,8) mesh whose route all_to_all crosses the ranks: it warns, and
               require_ici_local=True refuses it; (d) 2 re-decode passes, and 2 passes
               through a per-shard device store of 3,000,000 rows a pass (phase 5's 48,000,000
-              store rows over 2 passes and 8 shards); (e) rank 1 killed at its 4th child
-              batch with a checkpoint directory: rank 1 exits 17, the survivor non-zero
+              store rows over 2 passes and 8 shards); (e) rank 1 killed after 2 child
+              batches with a checkpoint directory: rank 1 exits 17, the survivor non-zero
               within the group's 60 s timeout, and a relaunch loads both parents' npz
               checkpoints and builds only the child. Every report on every rank equals
-              phase 4's; each rank launches the extraction 16 batches x 3 samples x 4 local
-              shards a trio (twice that for the 2 re-decode passes, the child's 64 after the
-              restart); each rank's wall, feed wait, route/fold/finalize/call seconds and
-              peak device bytes. Every launch runs under one deadline that kills every rank
-              when it passes; a rank's failure fails the phase. Then `merge` of phase 6's
+              the reference's; each rank launches the extraction 4 batches x 3 samples x 4
+              local shards a trio (twice that for the 2 re-decode passes, the child's 16
+              after the restart); each rank's wall, feed wait, route/fold/finalize/call
+              seconds and peak device bytes. Every launch runs under one deadline that kills
+              every rank when it passes; a rank's failure fails the phase. Then `merge` of
+              phase 6's
               two `count` checkpoints on the card, `stats`, `histo` and `dump` of the merged
               table (each equal to the numpy union of the two tables), and `doctor --mesh
               1x1 --probe-feed` on phase 4's child BAM. Phase 4 also prints the card's k-mer
@@ -195,14 +199,28 @@ each printed as one JSON line:
               with their counts), and (b)'s report must equal (a)'s; each run must launch the
               extraction once a batch (2,346) and the partition once a staging window in (b)
               only, and no flush, seed or fused call may hold more device bytes a row than
-              the CLI's auto model counts (cli.FLUSH_BYTES_PER_ROW). Each run prints its
-              wall, Metrics split, feed_wait, peak device bytes, the window auto chose, and
-              each table step's calls and device seconds (CUDA events); (a) also its busy
-              time, idle share and time by kernel.
+              the CLI's auto model counts for its W (cli.STEP_BYTES_PER_ROW). Each run
+              prints its wall, Metrics split, feed_wait, peak device bytes, the window auto
+              chose, and each table step's calls and device seconds (CUDA events); (a) also
+              its busy time, idle share and time by kernel. The BAMs stay for phase 13.
+13. sweep_scale — BASELINE config 4 at a real size on phase 12's BAMs. The numpy reference
+              at k = 15, 21 and 41 from the same seeded reads (no BAMs written), one k at a
+              time, with at most as many samples' shared buffers as fit 60% of the host's
+              available memory (k = 41: 22.9 GB a sample); it prints the host's RAM and
+              fails before a k starts if one buffer does not fit. Then `sweep --ks
+              15,21,31,41 --table-capacity 2^28 --accum-batches auto` through the CLI on the
+              card, traced. Each k's report must equal the reference's candidates at that k
+              (k = 31's also phase 12 run (a)'s) and its tables_n the reference's unique
+              counts, the extraction must launch once a batch a k (4 x 2,346), no table step
+              may pass the model's bytes a row for its step and W, and the peak may not pass
+              cli.window_peak. It prints each k's candidates and uniques, the auto plan,
+              wall, feed_wait, busy time, idle share, the table steps' device seconds by
+              step and by k, the peak against the card, and the extraction's launches and
+              seconds.
 
 BAMs store reverse-strand reads in reference orientation at the position of their first
 stored base, as an aligner does; canonical counting does not see the strand. Each path of
-phases 4 to 12 runs with every kernel's launch count set to 0 just before it and read just
+phases 4 to 13 runs with every kernel's launch count set to 0 just before it and read just
 after; the counts come from those runs alone (the block sort is a probe that no path
 launches). Then a ``kernels`` line (one entry per kernel), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -912,6 +930,7 @@ N_SNVS = 50
 MAIN_CFG = dict(k=K, max_read_len=160, batch_reads=16384, accum_batches=16,
                 table_capacity=1 << 23)
 BUCKETS = (64, 112, 160)  # phase 6's read_len_buckets
+BUCKET_READS = N_READS // 4  # phase 6's mixed trio: the first quarter of each sample's reads
 
 
 def sample_reads(rng, genome, n_rate, n=N_READS):
@@ -1000,7 +1019,17 @@ def window_words(codes, k):
     """Host numpy: the canonical k-mer of every window of every row of ``codes`` as (hi, lo)
     uint64 (n, P) halves of its 2k-bit value (hi None where k <= 32), and whether the window
     holds no N (n, P) bool. Windows of 2^i bases are built by doubling and joined by the
-    bits of k, so the cost grows with log k."""
+    bits of k, so the cost grows with log k; 4,096 rows at a time, so the doublings stay in
+    cache."""
+    parts = [_window_words_rows(codes[a:a + 4096], k) for a in range(0, codes.shape[0], 4096)]
+    if not parts:
+        parts = [_window_words_rows(codes, k)]
+    hi = None if k <= 32 else np.concatenate([p[0] for p in parts])
+    return hi, np.concatenate([p[1] for p in parts]), np.concatenate([p[2] for p in parts])
+
+
+def _window_words_rows(codes, k):
+    """``window_words`` of a block of rows."""
     n, L = codes.shape
     P = L - k + 1
     c = np.minimum(codes, 3).astype(np.uint64)
@@ -1062,7 +1091,7 @@ def reference_counts(codes, k=K):
         return keys, counts, int(valid.sum())
     rows = np.stack([hi[valid], lo[valid]], axis=1)
     del hi, lo
-    rows = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+    rows = rows[lex_order(rows[:, 0], rows[:, 1])]
     start = np.ones(rows.shape[0], bool)
     start[1:] = (rows[1:] != rows[:-1]).any(axis=1)
     at = np.nonzero(start)[0]
@@ -1082,7 +1111,7 @@ def references(jobs, workers=4):
 def _rows_in(a, b):
     """Which rows of ``a`` are rows of ``b`` (each (m, 2), rows unique within each)."""
     both = np.concatenate([a, b])
-    order = np.lexsort((both[:, 1], both[:, 0]))
+    order = lex_order(both[:, 0], both[:, 1])
     s = both[order]
     eq = (s[1:] == s[:-1]).all(axis=1)
     dup = np.zeros(s.shape[0], bool)
@@ -1480,15 +1509,16 @@ def phase_checkpoints(rng, work, main):
 
 
 def phase_buckets(rng, work, main):
-    """A mixed-length trio from phase 4's reads (each trimmed to 60-151 bp): run_trio,
-    the device-store spill and the 2-pass re-decode with read_len_buckets BUCKETS each equal
-    the unbucketed run_trio on the same BAMs."""
+    """A mixed-length trio from the first ``BUCKET_READS`` of phase 4's reads a sample (each
+    trimmed to 60-151 bp): run_trio, the device-store spill and the 2-pass re-decode with
+    read_len_buckets BUCKETS each equal the unbucketed run_trio on the same BAMs."""
     from denovo_kmer_tpu_torch.config import EngineConfig
     from denovo_kmer_tpu_torch.pipeline import run_trio, run_trio_multipass, run_trio_spill
     from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
     t0 = time.perf_counter()
-    paths, bases = write_mixed_trio(rng, os.path.join(work, "mixed"), samples=main["samples"])
+    samples = {s: tuple(a[:BUCKET_READS] for a in v) for s, v in main["samples"].items()}
+    paths, bases = write_mixed_trio(rng, os.path.join(work, "mixed"), samples=samples)
     bam_s = time.perf_counter() - t0
     plain = EngineConfig(**MAIN_CFG)
     buck = dataclasses.replace(plain, read_len_buckets=BUCKETS)
@@ -1521,7 +1551,8 @@ def phase_buckets(rng, work, main):
         out[name] = {"wall_s": wall, "launches": launches, "batches": m.counters["batches"],
                      "kmers_extracted": m.counters["kmers_extracted"],
                      **{f"{k}_s": v for k, v in sorted(m.seconds.items())}}
-    emit({"phase": "buckets", "buckets": list(BUCKETS), "bases": bases, "bam_write_s": bam_s,
+    emit({"phase": "buckets", "buckets": list(BUCKETS), "reads_per_sample": BUCKET_READS,
+          "bases": bases, "bam_write_s": bam_s,
           "candidates": report.count("\n") - 1, **out})
     return out
 
@@ -2487,6 +2518,7 @@ MH_LOCAL = 4  # each rank's local devices: cuda:0 four times
 MH_TIMEOUT = 60.0  # init_process_group timeout: how long a collective waits for a dead peer
 MH_JOIN_S = 360.0  # the longest a launch may take before every worker is killed
 MH_SPILL_PASSES = 2
+MH_READS = N_READS // 4  # phase 10's depth: the first quarter of each phase-4 sample's reads
 # phase 5's device store holds 12,000,000 rows a pass over 4 passes; the same 48,000,000
 # rows over 2 passes and 8 shards
 MH_SPILL_ROWS = STORE_ROWS * SPILL_PASSES // MH_SPILL_PASSES // (MESH[0] * MESH[1])
@@ -2620,16 +2652,38 @@ def _launch_ranks(job, world=MH_RANKS, join_s=MH_JOIN_S):
     return [p.exitcode for p in procs], exits, measured
 
 
+def depth_cut_trio(work, main, n_reads):
+    """The first ``n_reads`` reads of each phase-4 sample as BAMs of their own, with the
+    report of their numpy reference at phase 4's config. → {"paths", "report", "batches"
+    (all three samples')}."""
+    from denovo_kmer_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(**MAIN_CFG)
+    out = os.path.join(work, f"first{n_reads}")
+    os.makedirs(out, exist_ok=True)
+    paths = {}
+    for name, (pos, rev, codes) in main["samples"].items():
+        paths[name] = os.path.join(out, f"{name}.bam")
+        write_bam(paths[name], name, codes[:n_reads], pos[:n_reads], rev[:n_reads],
+                  GENOME_LEN)
+    ref = references({name: (codes[:n_reads], K)
+                      for name, (_, _, codes) in main["samples"].items()})
+    return {"paths": paths, "report": report_text(reference_candidates(ref, cfg), K),
+            "batches": 3 * -(-n_reads // cfg.batch_reads)}
+
+
 def phase_multihost(work, main):
     """run_trio_multihost in 2 spawned processes (gloo named explicitly), each rank on four
-    copies of cuda:0, at phase 4's BAMs and config: (a) a 2x4 mesh, stripe feed (reads
+    copies of cuda:0, at phase 4's config on the first ``MH_READS`` reads of each of its
+    samples (``depth_cut_trio``): (a) a 2x4 mesh, stripe feed (reads
     axis across the ranks, table axis inside each), traced on rank 0; (b) the range feed;
     (c) a (1,8) mesh whose route all_to_all crosses the ranks (warns; require_ici_local
     refuses it); (d) 2 re-decode passes, and 2 passes through the per-shard device store;
-    (e) child rank 1 killed at its 4th batch with a checkpoint directory: the survivor
+    (e) child rank 1 killed after 2 batches with a checkpoint directory: the survivor
     exits non-zero within the group's timeout, and a relaunch loads both parents' npz
-    checkpoints and builds only the child. Every report, on every rank, equals phase 4's;
-    every trio launches the extraction 16 batches x 3 samples x 4 local shards a rank."""
+    checkpoints and builds only the child. Every report, on every rank, equals the numpy
+    reference's; every trio launches the extraction 4 batches x 3 samples x 4 local shards
+    a rank."""
     out_dir = os.path.join(work, "multihost")
     os.makedirs(out_dir, exist_ok=True)
     ckpt = os.path.join(out_dir, "ckpt")
@@ -2644,14 +2698,15 @@ def phase_multihost(work, main):
         {"name": "d_spill_2", "mesh": mesh, "feed": "range", "n_passes": MH_SPILL_PASSES,
          "spill_rows": MH_SPILL_ROWS},
     ]
-    base = {"paths": main["paths"], "out": out_dir}
+    trio = depth_cut_trio(work, main, MH_READS)
+    base = {"paths": trio["paths"], "out": out_dir}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     codes, exits, measured = _launch_ranks({**base, "tag": "cases", "cases": cases})
     if codes != [0] * MH_RANKS:
         raise AssertionError(f"multi-process cases: rank exit codes {codes}")
     fault = {"name": "e_fault", "mesh": mesh, "feed": "range", "checkpoint_dir": ckpt,
-             "fault": ["child", 1, 4]}
+             "fault": ["child", 1, 2]}
     codes_f, exits_f, _ = _launch_ranks({**base, "tag": "fault", "cases": [fault]})
     if codes_f[1] != 17 or codes_f[0] == 0:
         raise AssertionError(f"fault run: rank exit codes {codes_f} (want 17 and a "
@@ -2671,10 +2726,11 @@ def phase_multihost(work, main):
     for r in range(MH_RANKS):
         measured[r].update(measured_r[r])
 
-    batches = main["batches"] // 3  # one sample's batches
-    trio = 3 * batches * MH_LOCAL  # extraction launches a rank for one trio
-    want_launches = {"a_stripe_2x4": trio, "b_range_2x4": trio, "c_stripe_1x8": trio,
-                     "d_passes_2": MH_SPILL_PASSES * trio, "d_spill_2": trio,
+    batches = trio["batches"] // 3  # one sample's batches
+    per_trio = 3 * batches * MH_LOCAL  # extraction launches a rank for one trio
+    want_launches = {"a_stripe_2x4": per_trio, "b_range_2x4": per_trio,
+                     "c_stripe_1x8": per_trio, "d_passes_2": MH_SPILL_PASSES * per_trio,
+                     "d_spill_2": per_trio,
                      "e_restart": batches * MH_LOCAL}  # the parents load from npz
     for case in [*cases, restart]:
         name = case["name"]
@@ -2682,8 +2738,9 @@ def phase_multihost(work, main):
         for r in range(MH_RANKS):
             with open(os.path.join(out_dir, f"{name}.rank{r}.tsv")) as f:
                 reports.append(f.read())
-        if reports != [main["report"]] * MH_RANKS:
-            raise AssertionError(f"multihost {name}: a rank's report differs from phase 4's")
+        if reports != [trio["report"]] * MH_RANKS:
+            raise AssertionError(f"multihost {name}: a rank's report differs from the "
+                                 "numpy reference's")
         for r in range(MH_RANKS):
             got = measured[r][name]["launches"]
             if got != {"extract_kmers": want_launches[name], "radix_partition": 0,
@@ -2701,7 +2758,8 @@ def phase_multihost(work, main):
             raise AssertionError(f"rank {r}: require_ici_local gave {c['refused']!r}")
     out = {"phase": "multihost", "power": power_line(), "ranks": MH_RANKS,
            "backend": "gloo", "local_devices": f"cuda:0 x {MH_LOCAL}",
-           "config": MAIN_CFG, "timeout_s": MH_TIMEOUT, "spill_rows": MH_SPILL_ROWS,
+           "config": MAIN_CFG, "reads_per_sample": MH_READS, "timeout_s": MH_TIMEOUT,
+           "spill_rows": MH_SPILL_ROWS,
            "launch_s": {"cases": exits, "fault": exits_f, "restart": exits_r},
            "fault": {"exit_codes": codes_f, "survivor_lag_s": lag, "checkpoints": saved},
            "phase4_wall_s": main["wall_s"],
@@ -3141,24 +3199,60 @@ def bgzf_compress(data, level=1):
 
 def canonical_rows(codes, k):
     """Host numpy: the canonical k-mer of every N-free window of every row of ``codes``, as
-    (m, 1) uint64 values (k <= 32: one pass along the reads, each base shifted into the
-    forward and reverse-complement values, 8,192 reads at a time so the pass stays in
-    cache) or (m, 2) uint64 (hi, lo) rows (window_words)."""
+    (m, 1) uint64 values (k <= 32) or (m, 2) uint64 (hi, lo) rows of the 2k-bit value
+    (32 < k <= 64; ``window_words``' halves). One pass along the reads, each base shifted
+    into the forward and reverse-complement values and the count of bases since the last
+    N, 8,192 reads at a time so the pass stays in cache; rows come position by position."""
     block = 8192
     n, L = codes.shape
     P = L - k + 1
-    if k > 32:
-        hi, lo, valid = window_words(codes, k)
-        return np.stack([hi[valid], lo[valid]], axis=1)
-    mask = np.uint64((1 << 2 * k) - 1)
-    two, top = np.uint64(2), np.uint64(2 * (k - 1))
+    two, one, kk = np.uint64(2), np.int32(1), np.int32(k)
+    wide = k > 32
+    if wide:  # the top 2k - 64 bits in hi, the low 64 in lo
+        hmask, s62 = np.uint64((1 << (2 * k - 64)) - 1), np.uint64(62)
+        top = np.uint64(2 * k - 66)
+        his = np.empty((P, n), np.uint64)
+    else:
+        mask, top = np.uint64((1 << 2 * k) - 1), np.uint64(2 * (k - 1))
     vals = np.empty((P, n), np.uint64)
+    valid = np.empty((P, n), bool)
     for a in range(0, n, block):
-        c = np.ascontiguousarray(np.minimum(codes[a:a + block], 3).T, dtype=np.uint64)
+        cb = np.ascontiguousarray(codes[a:a + block].T)
+        c = np.minimum(cb, 3).astype(np.uint64)
         rc = (np.uint64(3) - c) << top
-        f = np.zeros(c.shape[1], np.uint64)
-        r = np.zeros(c.shape[1], np.uint64)
+        isn = cb == 4
+        m = c.shape[1]
+        f, r, run = np.zeros(m, np.uint64), np.zeros(m, np.uint64), np.zeros(m, np.int32)
+        if wide:
+            fh, rh, t = np.zeros(m, np.uint64), np.zeros(m, np.uint64), np.empty(m, np.uint64)
         for j in range(L):
+            run += one
+            run[isn[j]] = 0
+            if j >= k - 1:
+                np.greater_equal(run, kk, out=valid[j - k + 1, a:a + block])
+            if wide:
+                # forward: (fh, f) << 2 | base; reverse complement: (rh, r) >> 2 with the
+                # complement entering at the top of rh
+                np.right_shift(f, s62, out=t)
+                fh <<= two
+                fh |= t
+                fh &= hmask
+                f <<= two
+                f |= c[j]
+                np.bitwise_and(rh, np.uint64(3), out=t)
+                t <<= s62
+                r >>= two
+                r |= t
+                rh >>= two
+                rh |= rc[j]
+                if j >= k - 1:
+                    take = (rh < fh) | ((rh == fh) & (r < f))
+                    out_h, out_l = his[j - k + 1, a:a + block], vals[j - k + 1, a:a + block]
+                    np.copyto(out_h, fh)
+                    np.copyto(out_h, rh, where=take)
+                    np.copyto(out_l, f)
+                    np.copyto(out_l, r, where=take)
+                continue
             f <<= two
             f |= c[j]
             f &= mask
@@ -3166,18 +3260,67 @@ def canonical_rows(codes, k):
             r |= rc[j]
             if j >= k - 1:
                 np.minimum(f, r, out=vals[j - k + 1, a:a + block])
-    bad = np.zeros((L + 1, n), np.int32)
-    np.cumsum(codes.T == 4, axis=0, dtype=np.int32, out=bad[1:])
-    return vals[(bad[k:k + P] - bad[:P]) == 0][:, None]
+    if wide:
+        return np.stack([his[valid], vals[valid]], axis=1)
+    return vals[valid][:, None]
+
+
+def unique_pairs(hi, lo):
+    """The distinct uint64 (hi, lo) pairs, (u, 2), with their counts, in no set order. One
+    value sort (several times faster than an argsort) of a 64-bit key whose low bits are the
+    row's index and whose high bits are a hash of its pair brings each pair's rows
+    together, except where two pairs share the hash's kept bits: the rows of such runs are
+    moved behind the others and put in ``lex_order``. Exact."""
+    n = hi.shape[0]
+    bits = max(int(n - 1).bit_length(), 1)
+    key = lo ^ (hi * _MIX)
+    key >>= np.uint64(bits)
+    key <<= np.uint64(bits)
+    key |= np.arange(n, dtype=np.uint64)
+    key.sort()
+    order = (key & np.uint64((1 << bits) - 1)).astype(np.int64)
+    key >>= np.uint64(bits)  # the run: the pair's hash bits
+    h, l = hi[order], lo[order]
+    del order
+    same = (h[1:] == h[:-1]) & (l[1:] == l[:-1])
+    mixed = (key[1:] == key[:-1]) & ~same  # a run that holds two pairs
+    if mixed.any():
+        run = np.concatenate([[0], np.cumsum(key[1:] != key[:-1])])
+        odd = np.isin(run, run[1:][mixed])
+        sub = lex_order(h[odd], l[odd])
+        h = np.concatenate([h[~odd], h[odd][sub]])
+        l = np.concatenate([l[~odd], l[odd][sub]])
+        same = (h[1:] == h[:-1]) & (l[1:] == l[:-1])
+    del key
+    at = np.flatnonzero(np.concatenate([[True], ~same])) if n else np.zeros(0, np.int64)
+    return np.stack([h[at], l[at]], axis=1), np.diff(np.append(at, n))
+
+
+def lex_order(hi, lo):
+    """Indices that sort uint64 (hi, lo) pairs lexicographically (``np.lexsort((lo, hi))``'s
+    order up to ties, a few times faster): an argsort of lo, then stable radix passes over
+    the 16-bit digits of hi that are not all zero."""
+    order = np.argsort(lo)
+    h = hi[order]
+    top = int(h.max()) if h.size else 0
+    shift = 0
+    while top >> shift:
+        step = np.argsort(((h >> np.uint64(shift)) & np.uint64(0xFFFF)).astype(np.uint16),
+                          kind="stable")
+        order, h = order[step], h[step]
+        shift += 16
+    return order
+
+
+_MIX = np.uint64(0x9E3779B97F4A7C15)
 
 
 def bucket_of(rows, n_buckets):
-    """Hash bucket (uint8, n_buckets a power of two <= 256) of each (m, cols) uint64 row."""
-    h = rows[:, 0]
-    for j in range(1, rows.shape[1]):
-        h = h * np.uint64(0xC2B2AE3D27D4EB4F) ^ rows[:, j]
-    return ((h * np.uint64(0x9E3779B97F4A7C15))
-            >> np.uint64(64 - n_buckets.bit_length() + 1)).astype(np.uint8)
+    """Hash bucket (uint8, n_buckets a power of two <= 256) of each (m, cols) uint64 row: the
+    top bits of its first column times ``_MIX`` (the value, or the top word of a two-word
+    value, so that a bucket holds whole hi groups)."""
+    top = np.uint64(64 - n_buckets.bit_length() + 1)
+    return ((rows[:, 0] * _MIX) >> top).astype(np.uint8)
 
 
 def _chunk_slots(spec, k):
@@ -3185,14 +3328,25 @@ def _chunk_slots(spec, k):
     return spec.chunk_reads * (READ_LEN - k + 1)
 
 
+def _cols(k):
+    """uint64 columns of a k-mer row: the value (k <= 32), or its (hi, lo) halves."""
+    return 1 if k <= 32 else 2
+
+
+def values_bytes(spec, k):
+    """Bytes of one sample's shared values buffer at ``k`` (8 B a window a column)."""
+    return spec.chunks * _chunk_slots(spec, k) * _cols(k) * 8
+
+
 @contextlib.contextmanager
 def _values(name, spec, k):
     """A sample's shared values buffer (one slot of ``_chunk_slots`` rows a chunk) as a
-    uint64 (rows, cols) array; the creator (``scale_trio``) unlinks it."""
+    uint64 (cols, rows) array, a plane a column; the creator (``scale_counts``) unlinks
+    it."""
     from multiprocessing import shared_memory
 
     shm = shared_memory.SharedMemory(name=name)
-    arr = np.ndarray((spec.chunks * _chunk_slots(spec, k), 1 if k <= 32 else 2), np.uint64,
+    arr = np.ndarray((_cols(k), spec.chunks * _chunk_slots(spec, k)), np.uint64,
                      buffer=shm.buf)
     try:
         yield arr
@@ -3201,17 +3355,17 @@ def _values(name, spec, k):
         shm.close()
 
 
-def scale_chunk_task(spec, work, values, sample, chunk, k, n_buckets):
-    """A worker's chunk: make its reads, their BAM records as BGZF blocks, and their
-    canonical k-mers grouped by hash bucket into the chunk's slot of the sample's shared
-    values buffer ``values``. → (BGZF bytes, k-mers a bucket, valid windows, seconds a
-    step)."""
+def scale_chunk_task(spec, work, values, sample, chunk, k, n_buckets, bam=True):
+    """A worker's chunk: make its reads (from the haplotypes in ``work``), their BAM records
+    as BGZF blocks (``bam``; else b""), and their canonical k-mers grouped by hash bucket
+    into the chunk's slot of the sample's shared values buffer ``values``. → (BGZF bytes,
+    k-mers a bucket, valid windows, seconds a step)."""
     t = [time.perf_counter()]
     pos, rev, codes = scale_chunk(spec, work, sample, chunk)
     t.append(time.perf_counter())
     digits = len(str(spec.reads - 1))
-    blob = bgzf_compress(bam_chunk_records(sample[0], digits, chunk * spec.chunk_reads, pos,
-                                           rev, codes))
+    blob = (bgzf_compress(bam_chunk_records(sample[0], digits, chunk * spec.chunk_reads, pos,
+                                            rev, codes)) if bam else b"")
     t.append(time.perf_counter())
     rows = canonical_rows(codes, k)
     del codes
@@ -3221,10 +3375,8 @@ def scale_chunk_task(spec, work, values, sample, chunk, k, n_buckets):
     t.append(time.perf_counter())
     at = chunk * _chunk_slots(spec, k)
     with _values(values, spec, k) as store:
-        if rows.shape[1] == 1:
-            np.take(rows[:, 0], order, out=store[at:at + rows.shape[0], 0])
-        else:
-            store[at:at + rows.shape[0]] = rows[order]
+        for c in range(rows.shape[1]):
+            np.take(rows[:, c], order, out=store[c, at:at + rows.shape[0]])
     t.append(time.perf_counter())
     seconds = dict(zip(("reads", "bam", "kmers", "buckets", "store"), np.diff(t)))
     return blob, np.bincount(bucket, minlength=n_buckets), rows.shape[0], seconds
@@ -3236,91 +3388,122 @@ def _bucket_path(work, sample, b, what):
 
 def scale_bucket_task(spec, work, values, sample, b, k, counts):
     """A worker's bucket: the sample's k-mers of bucket ``b`` from every chunk's slot of the
-    shared values buffer, ``np.unique`` with counts (saved beside the BAMs); for the child
-    also the bucket's candidates (count >= 2, the CLI's --min-child-count, and absent from
-    both parents' bucket ``b``: --tau-parent 0). → {"n": uniques, "windows": their count
-    sum[, "cand_keys", "cand_counts"]}."""
+    shared values buffer, counted (``np.unique``; ``lex_order`` for two-column rows) and
+    saved to ``work``; for the child also the bucket's candidates (count >= 2, the CLI's
+    --min-child-count, and absent from both parents' bucket ``b``: --tau-parent 0). →
+    {"n": uniques, "windows": their count sum[, "cand_keys", "cand_counts"]}."""
     slots = _chunk_slots(spec, k)
     starts = np.cumsum(counts, axis=1) - counts
     with _values(values, spec, k) as store:
-        rows = np.concatenate([store[c * slots + starts[c, b]:
-                                     c * slots + starts[c, b] + counts[c, b]]
-                               for c in range(counts.shape[0])])
-    if rows.shape[1] == 1:
-        keys, cnt = np.unique(rows[:, 0], return_counts=True)
+        cols = [np.concatenate([plane[c * slots + starts[c, b]:
+                                      c * slots + starts[c, b] + counts[c, b]]
+                                for c in range(counts.shape[0])]) for plane in store]
+    if len(cols) == 1:
+        keys, cnt = np.unique(cols[0], return_counts=True)
         keys = keys[:, None]
     else:
-        rows = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
-        head = np.ones(rows.shape[0], bool)
-        head[1:] = (rows[1:] != rows[:-1]).any(axis=1)
-        at = np.nonzero(head)[0]
-        keys, cnt = rows[at], np.diff(np.append(at, rows.shape[0]))
+        keys, cnt = unique_pairs(*cols)
+        del cols
     np.save(_bucket_path(work, sample, b, "keys"), keys)
     np.save(_bucket_path(work, sample, b, "counts"), cnt)
     out = {"n": keys.shape[0], "windows": int(cnt.sum())}
     if sample == "child":
         keep = cnt >= 2
+        cand, ccnt = keys[keep], cnt[keep]
         for parent in ("mom", "dad"):
             pk = np.load(_bucket_path(work, parent, b, "keys"))
-            if keys.shape[1] == 1:
-                keep &= ~np.isin(keys[:, 0], pk[:, 0])
-            else:
-                keep &= ~_rows_in(keys, pk)
-        out["cand_keys"], out["cand_counts"] = keys[keep], cnt[keep]
+            seen = (np.isin(cand[:, 0], pk[:, 0]) if keys.shape[1] == 1
+                    else _rows_in(cand, pk))
+            cand, ccnt = cand[~seen], ccnt[~seen]
+        out["cand_keys"], out["cand_counts"] = cand, ccnt
     return out
 
 
-def scale_trio(spec, work, k=K, n_buckets=SCALE_BUCKETS, workers=None):
-    """Write the trio's BAMs (``work/{sample}.bam``, one reference ``spec.ref_name``) and
-    its hash-bucketed numpy reference on a spawn process pool: chunk tasks make the reads,
-    write their BAM records and put their k-mers, grouped by bucket, into a shared memory
-    buffer a sample (8 B a window); bucket tasks count each bucket (the child's after both
-    parents'). → dict(paths, dnms, child_hap, ref {sample: {"n", "windows"}}, candidates
-    [(value, child count, 0, 0)] ascending, seconds: haplotypes, chunks (until every BAM
-    is written), buckets (the rest), first_chunk (the pool's start and first task), and
-    chunk_task_s (the chunk tasks' seconds by step, summed over workers))."""
+def scale_trio(spec, work, k=K, n_buckets=SCALE_BUCKETS, workers=None, haplotypes=None):
+    """Write the trio's haplotypes (unless ``haplotypes``, ``scale_haplotypes``' result for
+    ``work``, says they are there) and BAMs (``work/{sample}.bam``, one reference
+    ``spec.ref_name``) and its hash-bucketed numpy reference at ``k`` (``scale_counts``).
+    → ``scale_counts``' dict with dnms, child_hap and seconds["haplotypes"]."""
+    t0 = time.perf_counter()
+    dnms, child_hap = haplotypes or scale_haplotypes(spec, work)
+    t1 = time.perf_counter()
+    out = scale_counts(spec, work, work, k, n_buckets, workers, bams=True)
+    out["seconds"]["haplotypes"] = t1 - t0
+    return dict(out, dnms=dnms, child_hap=child_hap)
+
+
+def scale_counts(spec, work, out_dir, k, n_buckets=SCALE_BUCKETS, workers=None, bams=False,
+                 live=3, nice=0, on_pool=None):
+    """The trio's hash-bucketed numpy reference at ``k`` from the haplotypes in ``work``
+    (and, with ``bams``, its BAMs written there) on a spawn process pool: chunk tasks make
+    the reads, write their BAM records and put their k-mers, grouped by bucket, into a
+    shared memory buffer a sample (``values_bytes``); bucket tasks count each bucket into
+    ``out_dir`` (the child's after both parents'). At most ``live`` samples' buffers exist
+    at once: a sample's buffer is created once an earlier one is released. The workers run
+    at ``nice``; ``on_pool(pool)`` is told of the pool (to cancel it). → dict(paths
+    (with ``bams``), ref {sample: {"n", "windows"}}, candidates [(value, child count, 0,
+    0)] ascending, seconds: chunks (until every chunk is in), buckets (the rest),
+    first_chunk (the pool's start and first task), and chunk_task_s (the chunk tasks'
+    seconds by step, summed over workers))."""
     from multiprocessing import shared_memory
 
     from denovo_kmer_tpu_torch.io.bgzf import BGZF_EOF
 
-    t0 = time.perf_counter()
-    dnms, child_hap = scale_haplotypes(spec, work)
     t1 = time.perf_counter()
-    cols = 1 if k <= 32 else 2
-    shms = {s: shared_memory.SharedMemory(create=True, size=spec.chunks * _chunk_slots(spec, k)
-                                          * cols * 8) for s in SCALE_SAMPLES}
-    paths, ref, cands, parts, task_s, first = {}, {}, [], {}, {}, None
+    shms, paths, ref, cands, parts, task_s, first = {}, {}, {}, [], {}, {}, None
     ctx = multiprocessing.get_context("spawn")
     try:
-        with concurrent.futures.ProcessPoolExecutor(workers or os.cpu_count(),
-                                                    mp_context=ctx) as pool:
-            chunk_futures = {s: [pool.submit(scale_chunk_task, spec, work, shms[s].name, s, c,
-                                             k, n_buckets) for c in range(spec.chunks)]
-                             for s in SCALE_SAMPLES}
+        with concurrent.futures.ProcessPoolExecutor(
+                workers or os.cpu_count(), mp_context=ctx,
+                initializer=os.nice if nice else None, initargs=(nice,) if nice else ()) as pool:
+            if on_pool:
+                on_pool(pool)
+
+            def start(sample):
+                shms[sample] = shared_memory.SharedMemory(create=True,
+                                                          size=values_bytes(spec, k))
+                return [pool.submit(scale_chunk_task, spec, work, shms[sample].name, sample,
+                                    c, k, n_buckets, bams) for c in range(spec.chunks)]
+
+            def release(sample):
+                parts[sample] = [f.result() for f in bucket_futures.pop(sample)]
+                shm = shms.pop(sample)
+                shm.close()
+                shm.unlink()
+
+            chunk_futures = {s: start(s) for s in SCALE_SAMPLES[:live]}
             bucket_futures = {}
             for sample in SCALE_SAMPLES:
+                if sample not in chunk_futures:  # the oldest buffer makes room
+                    release(next(iter(bucket_futures)))
+                    chunk_futures[sample] = start(sample)
                 counts, windows = [], 0
-                paths[sample] = os.path.join(work, f"{sample}.bam")
-                with open(paths[sample], "wb") as f:
+                f = open(os.path.join(work, f"{sample}.bam"), "wb") if bams else None
+                if f:
+                    paths[sample] = f.name
                     f.write(bgzf_compress(bam_header(spec.ref_name, spec.genome_len)))
-                    for fut in chunk_futures[sample]:
-                        blob, bcounts, m, sec = fut.result()
-                        first = first or time.perf_counter()
+                for fut in chunk_futures.pop(sample):
+                    blob, bcounts, m, sec = fut.result()
+                    first = first or time.perf_counter()
+                    if f:
                         f.write(blob)
-                        counts.append(bcounts)
-                        windows += m
-                        for key, v in sec.items():
-                            task_s[key] = task_s.get(key, 0.0) + v
+                    counts.append(bcounts)
+                    windows += m
+                    for key, v in sec.items():
+                        task_s[key] = task_s.get(key, 0.0) + v
+                if f:
                     f.write(BGZF_EOF)
+                    f.close()
                 ref[sample] = {"windows": windows}
                 if sample == "child":  # its candidates need both parents' buckets
                     for parent in ("mom", "dad"):
-                        parts[parent] = [f.result() for f in bucket_futures[parent]]
+                        if parent in bucket_futures:
+                            release(parent)
                 bucket_futures[sample] = [
-                    pool.submit(scale_bucket_task, spec, work, shms[sample].name, sample, b, k,
-                                np.stack(counts)) for b in range(n_buckets)]
+                    pool.submit(scale_bucket_task, spec, out_dir, shms[sample].name, sample,
+                                b, k, np.stack(counts)) for b in range(n_buckets)]
             t2 = time.perf_counter()
-            parts["child"] = [f.result() for f in bucket_futures["child"]]
+            release("child")
     finally:
         for shm in shms.values():
             shm.close()
@@ -3337,10 +3520,9 @@ def scale_trio(spec, work, k=K, n_buckets=SCALE_BUCKETS, workers=None):
     for row, c in zip(keys[order], cnt[order]):
         v = int(row[0]) if len(row) == 1 else (int(row[0]) << 64) | int(row[1])
         cands.append((v, int(c), 0, 0))
-    return dict(paths=paths, dnms=dnms, child_hap=child_hap, ref=ref, candidates=cands,
-                seconds={"haplotypes": t1 - t0, "chunks": t2 - t1,
-                         "buckets": time.perf_counter() - t2, "first_chunk": first - t1,
-                         "chunk_task_s": task_s})
+    return dict(paths=paths, ref=ref, candidates=cands,
+                seconds={"chunks": t2 - t1, "buckets": time.perf_counter() - t2,
+                         "first_chunk": first - t1, "chunk_task_s": task_s})
 
 
 def scale_reference_table(work, sample, n_buckets=SCALE_BUCKETS):
@@ -3387,9 +3569,10 @@ def report_text(candidates, k):
 class TableSteps:
     """Device seconds (CUDA events), calls, rows and memory of the table steps of a run
     (the flushes, the seed, the fused call, the spill's partition and pass calls), taken
-    by wrapping them. Each call's device bytes beyond its inputs and output are taken from
-    the allocator's peak, which is reset at each call; ``peak`` keeps the run's overall
-    peak across those resets."""
+    by wrapping them, with each call's key words W and staging slots (which name a sweep's
+    lane). Each call's device bytes beyond its inputs and output are taken from the
+    allocator's peak, which is reset at each call; ``peak`` keeps the run's overall peak
+    across those resets."""
 
     def __init__(self):
         self.calls = {}
@@ -3406,7 +3589,12 @@ class TableSteps:
             res = real(*a, **kw)
             end.record()
             extra = torch.cuda.max_memory_allocated() - base - _new_bytes(res, a)
-            self.calls.setdefault(name, []).append((start, end, rows_of(*a, **kw), extra))
+            acc = a[0] if hasattr(a[0], "slots") else None
+            table = a[1] if acc is not None and len(a) > 1 else a[0]
+            words = (acc.kmers if acc is not None else table.keys).shape[1]
+            self.calls.setdefault(name, []).append(
+                (start, end, rows_of(*a, **kw), extra, words,
+                 None if acc is None else acc.slots))
             return res
         return wrapped
 
@@ -3444,15 +3632,50 @@ class TableSteps:
             for mod, attr, real in reals:
                 setattr(mod, attr, real)
 
+    @staticmethod
+    def _sum(calls):
+        return {"calls": len(calls),
+                "device_s": sum(c[0].elapsed_time(c[1]) for c in calls) / 1e3,
+                "rows": sum(c[2] for c in calls),
+                "max_bytes_per_row": max(c[3] / max(c[2], 1) for c in calls)}
+
     def summary(self):
-        """{step: {calls, device_s, rows, max_bytes_per_row}} (synchronizes)."""
+        """{step: {calls, device_s, rows, max_bytes_per_row, by_words: {W: the same}}}
+        (synchronizes)."""
         torch.cuda.synchronize()
         out = {}
         for name, calls in self.calls.items():
-            out[name] = {"calls": len(calls),
-                         "device_s": sum(s.elapsed_time(e) for s, e, _r, _b in calls) / 1e3,
-                         "rows": sum(r for _s, _e, r, _b in calls),
-                         "max_bytes_per_row": max(b / max(r, 1) for _s, _e, r, b in calls)}
+            out[name] = self._sum(calls)
+            out[name]["by_words"] = {w: self._sum([c for c in calls if c[4] == w])
+                                     for w in sorted({c[4] for c in calls})}
+        return out
+
+    def by_lane(self, lane_of_slots, seed_order):
+        """{k: {step: {calls, device_s, rows, max_bytes_per_row}}}: a call with staging
+        slots goes to the lane ``lane_of_slots`` names; the seeds, which have none, go to
+        ``seed_order``'s lanes in turn (synchronizes)."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, calls in self.calls.items():
+            lanes = ([seed_order[i] for i in range(len(calls))] if name == "seed"
+                     else [lane_of_slots[c[5]] for c in calls])
+            for k in dict.fromkeys(lanes):
+                out.setdefault(k, {})[name] = self._sum(
+                    [c for c, lane in zip(calls, lanes) if lane == k])
+        return out
+
+    #: the auto model's kind of each step (``cli.STEP_BYTES_PER_ROW``)
+    KINDS = {"seed": "seed", "fused_call": "call"}
+
+    def over_model(self, model):
+        """The calls holding more device bytes a row than ``model[W][kind]``: [(step, W,
+        bytes a row, the model's)]."""
+        out = []
+        for name, calls in self.calls.items():
+            for c in calls:
+                limit = model[c[4]][self.KINDS.get(name, "flush")]
+                if c[3] / max(c[2], 1) > limit:
+                    out.append((name, c[4], c[3] / max(c[2], 1), limit))
         return out
 
 
@@ -3509,14 +3732,17 @@ def _cli_run(argv):
     return out.getvalue(), err.getvalue()
 
 
-def scale_call(paths, out, flags, trace=None):
-    """`call` through the CLI on the card with every launch count set to 0 just before and
-    read just after, its table steps timed (``TableSteps``), optionally under a
-    torch.profiler trace written to ``trace``. → dict of the run's numbers."""
+def scale_cli(argv, trace=None, lanes=None):
+    """A CLI run (`call` or `sweep`) on the card with every launch count set to 0 just
+    before and read just after, its table steps timed (``TableSteps``), optionally under a
+    torch.profiler trace written to ``trace``. → dict of the run's numbers; ``tables_n``
+    is keyed by k for a sweep, by None for a call. ``lanes(auto batches)`` → (staging
+    slots → k, the ks in seeding order) splits a sweep's table steps by k (``by_lane``);
+    ``over_model`` lists each step call above the auto model's bytes a row for its step
+    and W."""
+    from denovo_kmer_tpu_torch import cli
     from denovo_kmer_tpu_torch.io.native import NativeBamFeeder
 
-    argv = ["call", "--mom", paths["mom"], "--dad", paths["dad"], "--child", paths["child"],
-            *SCALE_FLAGS, *flags, "-o", out]
     steps, metrics = TableSteps(), []
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3536,7 +3762,7 @@ def scale_call(paths, out, flags, trace=None):
     peak = max(steps.peak, torch.cuda.max_memory_allocated())
     auto = re.search(r"accum auto: (\d+) batches/window \((\d+) staging rows; modelled peak "
                      r"([0-9.]+) GB", err)
-    uniq = re.search(r"uniques mom=(\d+) dad=(\d+) child=(\d+)", err)
+    uniq = re.findall(r"(?:k=(\d+): [^\n]*)?uniques mom=(\d+) dad=(\d+) child=(\d+)", err)
     m = metrics[0]
     return {"argv": argv[7:], "wall_s": wall, "seconds": dict(m.seconds),
             "counters": dict(m.counters), "feed_wait_s": m.seconds.get("feed_wait", 0.0),
@@ -3544,12 +3770,17 @@ def scale_call(paths, out, flags, trace=None):
             "peak_device_bytes": peak, "auto_batches": int(auto.group(1)),
             "auto_window_rows": int(auto.group(2)),
             "auto_modelled_peak_bytes": float(auto.group(3)) * 1e9,
-            "tables_n": dict(zip(("mom", "dad", "child"), map(int, uniq.groups()))),
+            "tables_n": {int(k) if k else None: dict(zip(("mom", "dad", "child"),
+                                                           map(int, n)))
+                         for k, *n in uniq},
+            "accum_line": re.search(r"accum auto: [^\n]*", err).group(0),
             "steps": steps.summary(),
+            "by_lane": steps.by_lane(*lanes(int(auto.group(1)))) if lanes else None,
+            "over_model": steps.over_model(cli.STEP_BYTES_PER_ROW),
             "device": device_time(prof, trace, wall) if trace else None}
 
 
-def phase_scale(work, spec=ScaleSpec()):
+def phase_scale(work, spec=ScaleSpec(), early=None):
     """Phase 12: the main path at a real size. A chr20-length 30x trio (``ScaleSpec``) is
     written as BAMs with its hash-bucketed numpy reference; `call` runs on it through the
     CLI on the card (a) single-pass at table capacity 2^28 and (b) as the 4-pass
@@ -3559,13 +3790,18 @@ def phase_scale(work, spec=ScaleSpec()):
     seen fewer than twice in the child or seen in a parent, (b)'s report must equal (a)'s,
     each run's extraction must launch once a batch (and the partition once a staging
     window in (b)), and no table step may hold more device bytes a row than the CLI's auto
-    model counts."""
-    from denovo_kmer_tpu_torch import cli
-
-    sdir = os.path.join(work, "scale")
-    os.makedirs(sdir)
+    model counts for its W. The BAMs and haplotypes stay in ``work/scale`` for phase 13;
+    the reference's bucket files go. With ``early`` (``EarlyReferences``) the haplotypes are
+    its, and this phase's pool starts once its references have ended. → {"dir", "data",
+    "report", "runs": {name: {"launches"}}}."""
+    if early is None:
+        sdir, haplotypes = os.path.join(work, "scale"), None
+        os.makedirs(sdir)
+    else:
+        sdir, haplotypes = early.sdir, early.haplotypes
+        early.wait()
     t0 = time.perf_counter()
-    data = scale_trio(spec, sdir)
+    data = scale_trio(spec, sdir, haplotypes=haplotypes)
     t1 = time.perf_counter()
     want = report_text(data["candidates"], K)
     batches = 3 * -(-spec.reads // 16384)
@@ -3580,7 +3816,11 @@ def phase_scale(work, spec=ScaleSpec()):
                                                       data["ref"].values()))
                          // SCALE_PASSES))], None)):
         out = os.path.join(sdir, f"{name}.tsv")
-        run = runs[name] = scale_call(data["paths"], out, flags, trace)
+        paths = data["paths"]
+        run = runs[name] = scale_cli(["call", "--mom", paths["mom"], "--dad", paths["dad"],
+                                      "--child", paths["child"], *SCALE_FLAGS, *flags,
+                                      "-o", out], trace)
+        run["tables_n"] = run["tables_n"][None]
         with open(out) as f:
             report = f.read()
         run["candidates"] = report.count("\n") - 1
@@ -3600,10 +3840,9 @@ def phase_scale(work, spec=ScaleSpec()):
         if run["launches"]["radix_partition"] != want_part:
             raise AssertionError(f"run ({name}): {run['launches']['radix_partition']} "
                                  f"partition launches, not {want_part}")
-        worst = max(s["max_bytes_per_row"] for s in run["steps"].values())
-        if worst > cli.FLUSH_BYTES_PER_ROW:
-            raise AssertionError(f"run ({name}): a table step held {worst:.1f} B a row > the "
-                                 f"auto model's {cli.FLUSH_BYTES_PER_ROW}")
+        if run["over_model"]:
+            raise AssertionError(f"run ({name}): table steps above the auto model's bytes a "
+                                 f"row for their W: {run['over_model'][:4]}")
         run["peak_share_of_card"] = run["peak_device_bytes"] / mem
     # a planted site under no candidate must be one the reference explains: each of its
     # child k-mers seen fewer than twice in the child or seen in a parent (a parent's read
@@ -3615,14 +3854,206 @@ def phase_scale(work, spec=ScaleSpec()):
                for c, m, d in zip(ev["child"], ev["mom"], ev["dad"])):
             raise AssertionError(f"planted de novo SNV at {p} under no candidate, though a "
                                  f"k-mer over it is child-only: {ev}")
-    shutil.rmtree(sdir, ignore_errors=True)
+    for name in os.listdir(sdir):  # the reference's bucket files
+        if re.fullmatch(r"(mom|dad|child)\.b\d+\.(keys|counts)\.npy", name):
+            os.remove(os.path.join(sdir, name))
     emit({"phase": "scale", "spec": dataclasses.asdict(spec), "reads_per_sample": spec.reads,
           "card_bytes": mem, "data_s": t1 - t0, "data_seconds": data["seconds"],
           "reference": data["ref"], "candidates": len(data["candidates"]),
           "planted_dnms": spec.dnms, "dnms_recovered": spec.dnms - len(missed),
           "dnms_hidden": missed,
           "batches": batches, "runs": runs})
-    return {name: {"launches": r["launches"]} for name, r in runs.items()}
+    return {"dir": sdir, "data": data, "report": want,
+            "runs": {name: {"launches": r["launches"]} for name, r in runs.items()}}
+
+
+# ---------------------------------------------------------------------------------------
+# phase 13: BASELINE config 4 at a real size, the k sweep over phase 12's trio
+# ---------------------------------------------------------------------------------------
+
+#: share of the host's available memory phase 13's shared k-mer buffers may take (the rest
+#: is the workers' own arrays: a k > 32 bucket task holds ~2 GB)
+SWEEP_SHM_SHARE = 0.6
+#: phase 13's reference workers beside phases 1-11, at nice 19: one a core
+EARLY_WORKERS = os.cpu_count()
+
+
+def host_memory():
+    """The host's MemTotal and MemAvailable (bytes), from /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return {key: int(info[name].split()[0]) * 1024
+            for key, name in (("total", "MemTotal"), ("available", "MemAvailable"))}
+
+
+def sweep_references(spec, sdir, ks, workers=None, nice=0, on_pool=None):
+    """Phase 13's numpy reference at each k of ``ks`` over phase 12's reads (its haplotypes
+    in ``sdir``): ``scale_counts`` without BAMs, one k at a time, with at most as many
+    samples' shared buffers as fit ``SWEEP_SHM_SHARE`` of the host's available memory; it
+    fails before a k starts if not even one does. ``workers``, ``nice`` and ``on_pool`` go
+    to ``scale_counts``. → {k: {"ref", "candidates", "live", "host", "seconds",
+    "steps_s"}}."""
+    refs = {}
+    for k in ks:
+        host = host_memory()
+        size = values_bytes(spec, k)
+        live = min(3, int(SWEEP_SHM_SHARE * host["available"]) // size)
+        print(f"phase 13 reference k={k}: host RAM {host['total'] / 1e9:.1f} GB, "
+              f"{host['available'] / 1e9:.1f} GB available; {size / 1e9:.1f} GB of k-mer "
+              f"values a sample, {live} at a time", file=sys.stderr, flush=True)
+        if live < 1:
+            raise AssertionError(
+                f"the k={k} reference needs {size / 1e9:.1f} GB of shared memory a sample, "
+                f"more than {SWEEP_SHM_SHARE:.0%} of the host's "
+                f"{host['available'] / 1e9:.1f} GB available: refusing to run into swap")
+        kdir = os.path.join(sdir, f"k{k}")
+        os.makedirs(kdir)
+        t0 = time.perf_counter()
+        out = scale_counts(spec, sdir, kdir, k, workers=workers, live=live, nice=nice,
+                           on_pool=on_pool)
+        shutil.rmtree(kdir)
+        refs[k] = {"ref": out["ref"], "candidates": out["candidates"], "live": live,
+                   "host": host, "seconds": time.perf_counter() - t0,
+                   "steps_s": out["seconds"]}
+    return refs
+
+
+class EarlyReferences:
+    """Phase 13's references (``sweep_references`` at each k of ``SWEEP_KS`` but phase 12's)
+    computed from the script's start in a background thread, on ``EARLY_WORKERS`` spawn
+    workers at nice 19: phases 1-11 leave most of the host's cores idle, and the
+    references alone take about 9 minutes of an 8-core host. Phases 1-11 run somewhat
+    slower beside them. The haplotypes are written first, into
+    ``work/scale``, and phase 12 reuses them. ``wait()`` holds phase 12 back until the
+    references end, so that the two pools never hold their shared buffers at once;
+    ``result()`` returns them or raises their error; ``cancel()`` stops the pool and joins
+    the thread."""
+
+    def __init__(self, spec, work):
+        self.sdir = os.path.join(work, "scale")
+        os.makedirs(self.sdir)
+        self.haplotypes = scale_haplotypes(spec, self.sdir)
+        self.workers = EARLY_WORKERS
+        self.t0 = time.perf_counter()
+        self.ended_s = self.waited_s = None
+        self._pool, self._cancelled = None, False
+        self._thread = concurrent.futures.ThreadPoolExecutor(1)
+        self._future = self._thread.submit(self._run, spec, [k for k in SWEEP_KS if k != K])
+
+    def _run(self, spec, ks):
+        try:
+            return sweep_references(spec, self.sdir, ks, workers=self.workers, nice=19,
+                                    on_pool=self._track)
+        finally:
+            self.ended_s = time.perf_counter() - self.t0
+
+    def _track(self, pool):
+        self._pool = pool
+        if self._cancelled:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    def wait(self):
+        t0 = time.perf_counter()
+        concurrent.futures.wait([self._future])
+        self.waited_s = time.perf_counter() - t0
+
+    def result(self):
+        return self._future.result()
+
+    def cancel(self):
+        self._cancelled = True
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+        self._thread.shutdown(wait=True)
+
+
+def phase_sweep_scale(work, spec, scale, early=None):
+    """Phase 13: BASELINE config 4 at a real size. The numpy reference at k = 15, 21 and 41
+    over phase 12's reads (k = 31 is phase 12's), then `sweep --ks 15,21,31,41` through
+    the CLI on the card at table capacity 2^28 with --accum-batches auto on phase 12's
+    BAMs, traced like phase 12's run (a). Each k's report must equal the reference's
+    candidates at that k and k = 31's phase 12 run (a)'s, each k's tables_n the reference's
+    unique counts, the extraction must launch once a batch a k, no table step may hold
+    more device bytes a row than the auto model counts for its W, and the peak may not
+    pass the modelled peak. The references are ``early``'s where given (computed beside
+    phases 1-11), else computed here. The phase's line is printed before a failed check
+    raises."""
+    from denovo_kmer_tpu_torch import cli
+    from denovo_kmer_tpu_torch.config import words_per_kmer
+
+    sdir, data = scale["dir"], scale["data"]
+    ks = list(SWEEP_KS)
+    t0 = time.perf_counter()
+    refs = (early.result() if early is not None
+            else sweep_references(spec, sdir, [k for k in ks if k != K]))
+    refs[K] = {"ref": data["ref"], "candidates": data["candidates"], "live": None,
+               "host": None,
+               "seconds": data["seconds"]["chunks"] + data["seconds"]["buckets"]}
+    t1 = time.perf_counter()
+    paths = data["paths"]
+    batch_reads, max_len = 16384, 160
+    seeds = sorted(ks, key=lambda k: (words_per_kmer(k), k))
+
+    def lanes(batches):
+        return ({batches * batch_reads * (max_len - k + 1): k for k in ks}, seeds)
+
+    pattern = os.path.join(sdir, "sweep.k{k}.tsv")
+    argv = ["sweep", "--mom", paths["mom"], "--dad", paths["dad"], "--child", paths["child"],
+            *SCALE_FLAGS, "--ks", ",".join(map(str, ks)), "--table-capacity",
+            str(SCALE_CAPACITY), "-o", pattern]
+    run = scale_cli(argv, os.path.join(sdir, "sweep_trace.json"), lanes)
+    batches = 3 * -(-spec.reads // batch_reads)
+    mem = torch.cuda.get_device_properties(0).total_memory
+    model = cli.window_peak(run["auto_batches"], SCALE_CAPACITY, ks, max_len, batch_reads)
+    with open(os.path.join(sdir, "a.tsv")) as f:
+        report_a = f.read()
+    per_k, failed = {}, []
+    for k in ks:
+        with open(pattern.format(k=k)) as f:
+            report = f.read()
+        ref_n = {name: r["n"] for name, r in refs[k]["ref"].items()}
+        per_k[k] = {"candidates": report.count("\n") - 1, "uniques": run["tables_n"].get(k),
+                    "reference_uniques": ref_n,
+                    "reference_windows": {name: r["windows"]
+                                          for name, r in refs[k]["ref"].items()},
+                    "reference_s": refs[k]["seconds"], "reference_live": refs[k]["live"],
+                    "reference_steps_s": refs[k].get("steps_s"),
+                    "host_memory": refs[k]["host"]}
+        if report != report_text(refs[k]["candidates"], k):
+            failed.append(f"sweep k={k}: the report ({per_k[k]['candidates']} rows) differs "
+                          f"from the numpy reference's {len(refs[k]['candidates'])} "
+                          "candidates")
+        if k == K and report != report_a:
+            failed.append("sweep k=31: the report differs from phase 12 run (a)'s")
+        if run["tables_n"].get(k) != ref_n:
+            failed.append(f"sweep k={k}: tables_n {run['tables_n'].get(k)} != {ref_n}")
+    if run["launches"]["extract_kmers"] != len(ks) * batches:
+        failed.append(f"sweep: {run['launches']} launches for {batches} batches x {len(ks)} "
+                      "ks")
+    if run["launches"]["radix_partition"] != 0:
+        failed.append(f"sweep: {run['launches']['radix_partition']} partition launches")
+    if run["over_model"]:
+        failed.append(f"sweep: table steps above the auto model's bytes a row for their "
+                      f"step and W: {run['over_model'][:4]}")
+    if run["peak_device_bytes"] > model:
+        failed.append(f"sweep: peak {run['peak_device_bytes'] / 1e9:.2f} GB above the "
+                      f"modelled {model / 1e9:.2f} GB")
+    dev = run["device"] or {}
+    emit({"phase": "sweep_scale", "power": power_line(), "ks": ks,
+          "flags": argv[7:], "card_bytes": mem, "references_s": t1 - t0,
+          "early_references": None if early is None else {
+              "workers": early.workers, "ended_after_s": early.ended_s,
+              "phase12_waited_s": early.waited_s},
+          "per_k": per_k, "auto": run["accum_line"], "auto_batches": run["auto_batches"],
+          "modelled_peak_bytes": model, "peak_device_bytes": run["peak_device_bytes"],
+          "peak_share_of_card": run["peak_device_bytes"] / mem,
+          "wall_s": run["wall_s"], "feed_wait_s": run["feed_wait_s"],
+          "busy_s": dev.get("busy_s"), "idle_share": dev.get("idle_share"),
+          "extract_launches": run["launches"]["extract_kmers"],
+          "extract_kernel_s": dev.get("extract_kernel_s"), "failed": failed, "run": run})
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"launches": run["launches"]}
 
 
 def device_time(prof, trace_path, wall_s):
@@ -3710,7 +4141,10 @@ def main() -> int:
     part_cases = phase_partition()
     sort_case = phase_block_sort()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
+    early = None
     try:
+        # phase 13's references run from here, beside phases 1-11, on the cores they leave
+        early = EarlyReferences(ScaleSpec(seed=args.seed), work)
         small = phase_parity(work)
         phase_parity_buckets(work)
         phase_parity_slice(work, small)
@@ -3730,8 +4164,11 @@ def main() -> int:
             multihost = phase_multihost(work, main_run)
             phase_table_tools(work, main_run)
             library = phase_library(main_run)
-            scale = phase_scale(work, ScaleSpec(seed=args.seed))
+            scale = phase_scale(work, ScaleSpec(seed=args.seed), early)
+            sweep_scale = phase_sweep_scale(work, ScaleSpec(seed=args.seed), scale, early)
     finally:
+        if early is not None:
+            early.cancel()
         shutil.rmtree(work, ignore_errors=True)
 
     main_case = next(c for c in cases if c["k"] == K and c["canonical"] and c["max_read_len"]
@@ -3753,14 +4190,15 @@ def main() -> int:
                "sweep": sweep["launches"], "cohort": cohort["launches"],
                **evidence["launches"], **inputs,
                **{f"library_{name}": v for name, v in library["launches"].items()},
-               "scale_run_trio": scale["a"]["launches"],
-               f"scale_spill_{SCALE_PASSES}": scale["b"]["launches"]}
+               "scale_run_trio": scale["runs"]["a"]["launches"],
+               f"scale_spill_{SCALE_PASSES}": scale["runs"]["b"]["launches"],
+               "scale_sweep": sweep_scale["launches"]}
     standalone = library["extract_fast"][0]  # k=31, canonical
     emit({"kernels": [{
         "name": "extract_kmers", "route": "cuda",
         "source": "denovo_kmer_tpu_torch/csrc/extract_kmers.cu",
         "replaces": "denovo_kmer_tpu/ops/extract_pallas.py:42",
-        "launches": sharded["launches"]["extract_kmers"],
+        "launches": sweep_scale["launches"]["extract_kmers"],
         "max_abs_err": worst, "max_abs_diff": worst,
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -3776,8 +4214,9 @@ def main() -> int:
         "standalone_launch": {key: standalone[key] for key in
                               ("B", "k", "launches", "max_abs_err", "ms", "plain_ms",
                                "bound_ms", "bound_by", "invalid_keys_differing")},
-        "shape": "B=16384 max_read_len=160 k=31 canonical; launches: run_trio_sharded on a "
-                 "2x4 mesh of one card, B=2048 a launch; standalone_launch: "
+        "shape": "B=16384 max_read_len=160 k=31 canonical; launches: phase 13's sweep at "
+                 "k = 15, 21, 31, 41 over the chr20-length 30x trio, one a batch a k; "
+                 "standalone_launch: "
                  "ops/extract_fast.extract_canonical_kmers_fast on one child batch, the "
                  "whole call (allocation, launch, int64 widening) against the plain version"},
         {

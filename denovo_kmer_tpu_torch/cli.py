@@ -172,88 +172,150 @@ def _profiler(args):
         on_trace_ready=torch.profiler.tensorboard_trace_handler(args.profile_dir))
 
 
-#: Device bytes a row of (table capacity + staging window) that one flush or the fused call
-#: holds beyond its input and output tables: the int64 sort key a row, torch.sort's sorted
-#: keys, permutation, index input and radix scratch, the weight column and its scan
-#: (``ops/table._aggregate_parts``). chip_smoke.py phase 12 measures it on the card and
-#: fails if a flush takes more.
-FLUSH_BYTES_PER_ROW = 56
+#: Device bytes a row that a table step holds beyond its input and output tables, by key words
+#: W and step: "flush" (a parent's flush, a child's compacting flush, the spill's partition
+#: and pass steps: rows of capacity + staging window), "seed" (the scoring table's seed:
+#: rows of both parents' capacities) and "call" (the fused call: rows of capacity + window).
+#: They hold the int64 sort key a row (two for W > 2: ``ops/table._sorted_groups``),
+#: torch.sort's sorted keys, permutation, index input and radix scratch, the weight column
+#: and its scan (``ops/table._aggregate_parts``). chip_smoke.py phases 12 and 13 measure them
+#: on the card at W = 1, 2, 3 and fail if a step takes more. The most measured on an H100
+#: (flush / seed / call): W = 1 45.9 / 45.1 / 51.5, W = 2 53.8 / 49.2 / 53.1, W = 3 63.3 /
+#: 61.1 / 75.2. The W = 3 seed keeps 72: at 66 the sweep's plan (104 batches a window) ran
+#: out of memory with 27 GiB of the caching allocator's blocks free but split.
+STEP_BYTES_PER_ROW = {1: {"flush": 56, "seed": 56, "call": 56},
+                      2: {"flush": 56, "seed": 56, "call": 56},
+                      3: {"flush": 72, "seed": 72, "call": 80}}
+STEP_BYTES_PER_ROW[4] = STEP_BYTES_PER_ROW[3]  # two sort keys, as at W = 3
+#: a flush's bytes a row at W <= 2 (one sort key a row): k <= 32
+FLUSH_BYTES_PER_ROW = STEP_BYTES_PER_ROW[2]["flush"]
 #: share of the card's memory that ``--accum-batches auto`` plans for (the rest is the
 #: caching allocator's slack)
 AUTO_MEMORY_SHARE = 0.85
 AUTO_MAX_BATCHES = 128
 
 
-def window_peak(batches: int, capacity: int, k: int, max_read_len: int, batch_reads: int,
+def _lanes(k) -> list:
+    """The ks of a run (an int, or a sweep's ks) in the order the sweep seeds its lanes:
+    narrowest first (``cohort.run_trio_multi_k``)."""
+    from denovo_kmer_tpu_torch.config import words_per_kmer
+
+    ks = [k] if isinstance(k, int) else list(dict.fromkeys(int(x) for x in k))
+    return sorted(ks, key=lambda x: (words_per_kmer(x), x))
+
+
+def _lane_rows(batches: int, k: int, max_read_len: int, batch_reads: int, mesh) -> int:
+    """Staging rows of one lane's window (a mesh shard's share of it)."""
+    return batches * -(-batch_reads * max(max_read_len - k + 1, 0)
+                       // max(mesh[0] * mesh[1], 1))
+
+
+def window_peak(batches: int, capacity: int, k, max_read_len: int, batch_reads: int,
                 mesh=(1, 1), passes: int = 1, spill_rows=None) -> int:
-    """The modelled device peak (bytes, per device) of a run whose staging window holds
-    ``batches`` batches. A mesh splits the window over R·T shards and the table over T. A
-    ``KmerTable`` row costs 8W+8 B and a ``ScoreTable`` row 8W+16 B (int64 words and
-    counts), a staged row 4W+1 B, and a flush or the fused call over N rows
-    ``FLUSH_BYTES_PER_ROW``·N beyond its tables (as does the spill's partition of a window).
-    The peak is the largest of: a parent's flush with the other parent resident (three
-    tables), the scoring table's seed over both parents (at twice the capacity), a child
-    flush (the scoring table in and out; the parents are released once it is seeded); with
-    the device-store spill (``passes`` > 1 and ``spill_rows``) the three samples' stores
+    """The modelled device peak (bytes, per device) of a run whose staging windows hold
+    ``batches`` batches; ``k`` is the run's k, or a sweep's list of ks (one lane a k, each
+    with its own staging window and tables). A mesh splits the window over R·T shards and
+    the table over T. A ``KmerTable`` row costs 4W+4 B and a ``ScoreTable`` row 4W+8 B
+    (int32 words and counts, as in the JAX package), a staged row 4W+1 B, and a table step
+    over N rows ``STEP_BYTES_PER_ROW[W][step]``·N beyond its tables. The peak is the largest
+    of: a lane's flush in dad's build (mom's tables, dad's tables and staging windows
+    resident: three tables for one k); each lane's seed over its two parents (at twice the
+    capacity), narrowest lane first, beside the parental tables not yet seeded from and the
+    lanes already seeded; a lane's flush or fused call in the child's stream (every scoring
+    table and window resident; the parents are released once seeded). With the
+    device-store spill (one k, ``passes`` > 1 and ``spill_rows``) the three samples' stores
     (``ops/spill.alloc_pass_rows`` rows a pass) stay beside the last spill's partition and
     the counting passes' tables."""
     from denovo_kmer_tpu_torch.config import words_per_kmer
     from denovo_kmer_tpu_torch.ops.spill import alloc_pass_rows, spill_capacity
 
-    reads_ax, table_ax = mesh
-    W = words_per_kmer(k)
-    kt, st, row = 8 * W + 8, 8 * W + 16, 4 * W + 1
-    F = FLUSH_BYTES_PER_ROW
-    C = -(-capacity // max(table_ax, 1))
-    S = batches * -(-batch_reads * max(max_read_len - k + 1, 0) // max(reads_ax * table_ax, 1))
+    C = -(-capacity // max(mesh[1], 1))
+    lanes = []  # (staging rows, KmerTable row, ScoreTable row, staged row, step bytes) a k
+    for kk in _lanes(k):
+        W = words_per_kmer(kk)
+        lanes.append((_lane_rows(batches, kk, max_read_len, batch_reads, mesh), 4 * W + 4,
+                      4 * W + 8, 4 * W + 1, STEP_BYTES_PER_ROW[W]))
     if passes > 1 and spill_rows is not None:
+        if len(lanes) != 1:
+            raise ValueError("the spill runs one k")
+        (S, kt, st, row, F), = lanes
+        W = (row - 1) // 4
         alloc = alloc_pass_rows(-(-spill_rows // S) * S, spill_capacity(S, passes, 1.4), S)
         stores = 3 * passes * alloc * 4 * W
         # the last sample's spill: its staging window and partition beside the stores; then
         # each pass folds store chunks of S rows: dad's with mom's table resident, the
         # seed (at capacity C) over both, a child flush once the parents are released
-        flush = (C + S) * F
-        return stores + max(S * (row + F), 3 * C * kt + flush,
-                            2 * C * kt + 2 * C * F + C * st, 2 * C * st + flush)
-    flush = (C + S) * F + S * row
-    return max(3 * C * kt + flush, 2 * C * kt + 2 * C * (F + st), 2 * C * st + flush)
+        flush = (C + S) * F["flush"]
+        return stores + max(S * (row + F["flush"]), 3 * C * kt + flush,
+                            2 * C * kt + 2 * C * F["seed"] + C * st, 2 * C * st + flush)
+    staged = sum(S * row for S, _kt, _st, row, _F in lanes)
+    parents = 2 * C * sum(kt for _S, kt, _st, _r, _F in lanes)
+    peak = parents + staged + max((C + S) * F["flush"] + C * kt
+                                  for S, kt, _st, _r, F in lanes)
+    seeded = 0
+    for S, kt, st, row, F in lanes:
+        peak = max(peak, parents + seeded + 2 * C * (F["seed"] + st))
+        parents -= 2 * C * kt
+        seeded += C * st + S * row
+    return max(peak, seeded + max(max((C + S) * F["flush"] + C * st, (C + S) * F["call"])
+                                  for S, _kt, st, _r, F in lanes))
 
 
-def auto_window_plan(mem: int, capacity: int, k: int, max_read_len: int, batch_reads: int,
+def auto_window_plan(mem: int, capacity: int, k, max_read_len: int, batch_reads: int,
                      mesh=(1, 1), passes: int = 1, spill_rows=None) -> dict:
     """``--accum-batches auto`` as a pure function of the card's memory (bytes) and the
-    run's shapes: the most batches a staging window (at most ``AUTO_MAX_BATCHES``) whose
-    ``window_peak`` fits ``AUTO_MEMORY_SHARE`` of ``mem``; at least 1. → {"batches",
-    "window_rows", "peak", "budget"}."""
+    run's shapes (``k``: the run's k, or a sweep's ks): the most batches a staging window
+    (at most ``AUTO_MAX_BATCHES``) whose ``window_peak`` fits ``AUTO_MEMORY_SHARE`` of
+    ``mem``; at least 1. → {"batches", "window_rows" (summed over the lanes), "lane_rows"
+    ({k: a lane's staging rows}), "peak", "budget"}."""
     budget = int(mem * AUTO_MEMORY_SHARE)
     shape = (capacity, k, max_read_len, batch_reads, mesh, passes, spill_rows)
     n = AUTO_MAX_BATCHES
     while n > 1 and window_peak(n, *shape) > budget:
         n -= 1
-    per_batch = -(-batch_reads * max(max_read_len - k + 1, 0) // max(mesh[0] * mesh[1], 1))
-    return {"batches": n, "window_rows": n * per_batch, "peak": window_peak(n, *shape),
-            "budget": budget}
+    lane_rows = {kk: _lane_rows(n, kk, max_read_len, batch_reads, mesh) for kk in _lanes(k)}
+    return {"batches": n, "window_rows": sum(lane_rows.values()), "lane_rows": lane_rows,
+            "peak": window_peak(n, *shape), "budget": budget}
 
 
 def _accum_kwargs(args) -> dict:
     """--accum-batches: integer, or 'auto' = the largest staging window whose modelled
-    device peak fits the card (``auto_window_plan``) at the run's table capacity."""
+    device peak fits the card (``auto_window_plan``) at the run's table capacity, over the
+    sweep's ks (``--ks``) for ``sweep``."""
     raw = args.accum_batches
     if str(raw) != "auto":
         return {"accum_batches": int(raw)}
     import torch
 
+    from denovo_kmer_tpu_torch.config import words_per_kmer
+
     if args.device == "cuda" and torch.cuda.is_available():
         mem = torch.cuda.get_device_properties(0).total_memory
     else:
         mem = 4 << 30
-    plan = auto_window_plan(mem, args.table_capacity, args.kmer_size, args.max_read_len,
+    ks = ([int(x) for x in args.ks.split(",")] if getattr(args, "ks", None)
+          else args.kmer_size)
+    plan = auto_window_plan(mem, args.table_capacity, ks, args.max_read_len,
                             args.batch_reads, tuple(args.mesh), getattr(args, "passes", 1),
                             getattr(args, "spill_rows", None))
+    lanes = plan["lane_rows"]
+
+    def step_bytes(w):
+        b = STEP_BYTES_PER_ROW[w]
+        return "/".join(str(b[step]) for step in ("flush", "seed", "call"))
+
+    if isinstance(ks, int):
+        flush = f"{step_bytes(words_per_kmer(ks))} B a flush/seed/call row"
+    else:  # the sweep: each lane's window, and the steps' bytes by key words
+        flush = ("B a flush/seed/call row by key words " + ", ".join(
+            f"W={w}: {step_bytes(w)}"
+            for w in dict.fromkeys(words_per_kmer(x) for x in lanes))
+            + "; ks " + ",".join(map(str, lanes)) + ", staging rows a lane "
+            + ", ".join(f"k={x}: {r}" for x, r in lanes.items()))
     print(f"accum auto: {plan['batches']} batches/window ({plan['window_rows']} staging "
           f"rows; modelled peak {plan['peak'] / 1e9:.2f} GB of a {plan['budget'] / 1e9:.2f} GB "
           f"budget = {AUTO_MEMORY_SHARE:.0%} of {mem / 1e9:.0f} GB, table capacity "
-          f"{args.table_capacity}, {FLUSH_BYTES_PER_ROW} B a flush row)", file=sys.stderr)
+          f"{args.table_capacity}, {flush})", file=sys.stderr)
     return {"accum_batches": plan["batches"]}
 
 
@@ -421,7 +483,9 @@ def cmd_sweep(args) -> int:
         path = args.output_pattern.format(k=k)
         with open(path, "w") as f:
             f.write(res.report)
-        print(f"k={k}: {len(res.candidates)} candidates -> {path}", file=sys.stderr)
+        n = res.tables_n
+        print(f"k={k}: {len(res.candidates)} candidates -> {path} (uniques mom={n['mom']} "
+              f"dad={n['dad']} child={n['child']})", file=sys.stderr)
     print(metrics.summary(), file=sys.stderr)
     return 0
 

@@ -62,26 +62,34 @@ def run_trio_multi_k(
 
     tables: Dict[str, Dict[int, KmerTable]] = {}
     for name, path in (("mom", mom_path), ("dad", dad_path)):
-        lanes = {k: SampleTableBuilder(cfgs[k], dev).lane() for k in ks}
+        lanes = {k: SampleTableBuilder(cfgs[k], dev).lane() for k in cfgs}
         with m.timer(f"build_{name}"):
             _fold_placed(packed_batches(path, base_cfg, region), base_cfg, dev,
                          list(lanes.values()), m)
         tables[name] = {k: lane.state for k, lane in lanes.items()}
-        for k in ks:
+        del lanes  # its staging buffers, before the next sample's are allocated
+        for k in cfgs:
             _check_table(tables[name][k], cfgs[k], f"unique k-mers at k={k}")
+    tables_n = {k: {name: int(tables[name][k].n) for name in tables} for k in cfgs}
 
-    scorers = {k: ScoringTableBuilder(cfgs[k], dev) for k in ks}
-    lanes = {k: scorers[k].child_lane(tables["mom"][k], tables["dad"][k]) for k in ks}
+    # Each lane's seed takes its two parental tables out of ``tables``, so they are freed
+    # once it is seeded: a lane of W words trades 2·(4W+4) B a capacity row of parental
+    # tables for a (4W+8)-B scoring table. The seed is the run's largest step (it sorts
+    # twice the capacity) and grows with W, so the lanes seed narrowest first: the widest
+    # seeds when the fewest parental tables are left (``cli.window_peak`` models this order).
+    scorers = {k: ScoringTableBuilder(cfgs[k], dev) for k in cfgs}
+    lanes = {}
+    for k in sorted(cfgs, key=lambda k: (cfgs[k].words, k)):
+        lanes[k] = scorers[k].child_lane(tables["mom"].pop(k), tables["dad"].pop(k))
     with m.timer("build_child"):
         _fold_placed(packed_batches(child_path, base_cfg, region), base_cfg, dev,
                      list(lanes.values()), m)
 
     out: Dict[int, TrioResult] = {}
-    for k in ks:
-        cands, child_uniques = scorers[k].finish(lanes[k], m)
-        tables_n = {"mom": int(tables["mom"][k].n), "dad": int(tables["dad"][k].n),
-                    "child": child_uniques}
-        out[k] = _trio_result(_candidate_parts(cands), k, m, tables_n)
+    for k in cfgs:
+        cands, child_uniques = scorers[k].finish(lanes.pop(k), m)
+        out[k] = _trio_result(_candidate_parts(cands), k, m,
+                              dict(tables_n[k], child=child_uniques))
     return out
 
 

@@ -11,7 +11,8 @@ concatenation, with no random-access lookups:
   of their key; the last table row is carried down the sorted stream (the JAX associative
   scan, here a running maximum of table-row indices) and the results go back to query order.
 
-Keys and counts are int64 tensors holding uint32 values, as in ``ops/table.py``.
+The tables hold int32 bits (``ops/table.py``); both joins widen keys and counts to int64
+uint32 values (``u32``) and return counts as int64 uint32 values.
 """
 
 from __future__ import annotations
@@ -42,14 +43,14 @@ def join_tables_on_child(
     """For every child-table slot, the mom and dad counts of that key (0 when absent).
 
     Returns (child_keys (Cc, W), child_counts, mom_counts, dad_counts, child_valid) in the
-    child table's order. One sort by (padding last, key words, source tag) and two
-    shift-compares."""
+    child table's order, as int64 uint32 values. One sort by (padding last, key words,
+    source tag) and two shift-compares."""
     W = child.keys.shape[1]
     Cc, Cm, Cd = (t.keys.shape[0] for t in (child, mom, dad))
     dev = child.keys.device
 
-    keys = torch.cat([mom.keys, dad.keys, child.keys])
-    counts = torch.cat([mom.counts, dad.counts, child.counts])
+    keys = u32(torch.cat([mom.keys, dad.keys, child.keys]))
+    counts = u32(torch.cat([mom.counts, dad.counts, child.counts]))
     # the source tag orders ties (mom=0, dad=1, child=2); padding rows sort after every
     # valid row of the same key and never act as join partners
     valid = torch.cat([valid_rows(mom.n, Cm), valid_rows(dad.n, Cd),
@@ -89,7 +90,8 @@ def join_tables_on_child(
     out_dad = torch.zeros((Cc + 1,), dtype=torch.int64, device=dev)
     out_mom[slot] = momc
     out_dad[slot] = dadc
-    return child.keys, child.counts, out_mom[:Cc], out_dad[:Cc], valid_rows(child.n, Cc)
+    return (keys[Cm + Cd:], counts[Cm + Cd:], out_mom[:Cc], out_dad[:Cc],
+            valid_rows(child.n, Cc))
 
 
 def probe_table_sorted(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
@@ -102,8 +104,8 @@ def probe_table_sorted(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
     N = q.shape[0]
     dev = table.keys.device
 
-    keys = torch.cat([table.keys, q])
-    counts = torch.cat([table.counts, torch.zeros((N,), dtype=torch.int64, device=dev)])
+    keys = torch.cat([u32(table.keys), q])
+    counts = torch.cat([u32(table.counts), torch.zeros((N,), dtype=torch.int64, device=dev)])
     is_tab = torch.cat([valid_rows(table.n, C),
                         torch.zeros((N,), dtype=torch.bool, device=dev)])
     src = torch.cat([torch.zeros((C,), dtype=torch.int64, device=dev),

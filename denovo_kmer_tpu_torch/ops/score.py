@@ -22,8 +22,10 @@ from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, staged_valid
 from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
     _aggregate_parts,
+    _host_bits,
     _sticky_overflow_n,
     empty_table,
+    u32,
     valid_rows,
 )
 from denovo_kmer_tpu_torch.ops.trio import Candidates
@@ -33,11 +35,12 @@ _SAT = 0xFFFF
 
 
 class ScoreTable(NamedTuple):
-    """Sorted (keys, child counts, packed parental counts), padding last, like KmerTable."""
+    """Sorted (keys, child counts, packed parental counts), padding last, like KmerTable:
+    int32 tensors of the uint32 values' bits, 4W+8 B a row as in the JAX package."""
 
-    keys: torch.Tensor  # (C, W) int64 uint32 values
-    counts: torch.Tensor  # (C,) int64 — child occurrence counts (uint32 values)
-    pcounts: torch.Tensor  # (C,) int64 — min(mom,0xFFFF) | min(dad,0xFFFF) << 16
+    keys: torch.Tensor  # (C, W) int32 — uint32 key words, bit for bit
+    counts: torch.Tensor  # (C,) int32 — child occurrence counts (uint32 bits)
+    pcounts: torch.Tensor  # (C,) int32 — min(mom,0xFFFF) | min(dad,0xFFFF) << 16 (bits)
     n: torch.Tensor  # () int64
 
     @property
@@ -48,13 +51,11 @@ class ScoreTable(NamedTuple):
 def score_table_from_numpy(keys: np.ndarray, counts: np.ndarray, pcounts: np.ndarray,
                            n: int, device=None) -> ScoreTable:
     """A scoring table on ``device`` (``None``: the card) from host uint32 arrays and the
-    int ``n`` (a JAX ScoreTable's leaves through ``np.asarray``)."""
+    int ``n`` (a JAX ScoreTable's leaves through ``np.asarray``). On the CPU the tensors
+    view the arrays' bits (no copy)."""
     device = resolve_device(device)
-
-    def dev64(a):
-        return torch.from_numpy(np.asarray(a, np.uint32).astype(np.int64)).to(device)
-
-    return ScoreTable(keys=dev64(keys), counts=dev64(counts), pcounts=dev64(pcounts),
+    return ScoreTable(keys=_host_bits(keys).to(device), counts=_host_bits(counts).to(device),
+                      pcounts=_host_bits(pcounts).to(device),
                       n=torch.tensor(int(n), dtype=torch.int64, device=device))
 
 
@@ -80,11 +81,18 @@ def _score_aggregate(parts, capacity: int, *input_overflows) -> ScoreTable:
                       n=_sticky_overflow_n(n, capacity, *input_overflows))
 
 
+def _sat16(counts: torch.Tensor) -> torch.Tensor:
+    """min(count, 0xFFFF) of uint32 counts held as int32 bits (a negative bit pattern is a
+    count at or above 2^31), in the counts' dtype."""
+    return torch.where((counts < 0) | (counts > _SAT), _SAT, counts)
+
+
 def seed_score_table(mom: KmerTable, dad: KmerTable, capacity: int) -> ScoreTable:
-    """Union of the parental tables as a scoring table: child counts 0, pcounts packed."""
+    """Union of the parental tables as a scoring table: child counts 0, pcounts packed
+    (dad's half shifted into the high 16 bits of the 32-bit pack)."""
     return _score_aggregate(
-        [(mom.keys, valid_rows(mom.n, mom.capacity), [0, mom.counts.clamp(max=_SAT)]),
-         (dad.keys, valid_rows(dad.n, dad.capacity), [0, dad.counts.clamp(max=_SAT) << 16])],
+        [(mom.keys, valid_rows(mom.n, mom.capacity), [0, _sat16(mom.counts)]),
+         (dad.keys, valid_rows(dad.n, dad.capacity), [0, _sat16(dad.counts) << 16])],
         capacity)
 
 
@@ -131,18 +139,19 @@ def call_from_score(tab: ScoreTable, tau_parent: int, min_child_count: int) -> C
     min_child_count >= 1 (config-validated).
     """
     check_call_args(tau_parent, min_child_count)
-    momc = tab.pcounts & _SAT
-    dadc = tab.pcounts >> 16
+    counts, pcounts = u32(tab.counts), u32(tab.pcounts)
+    momc = pcounts & _SAT
+    dadc = pcounts >> 16
     flags = (
         valid_rows(tab.n, tab.capacity)
-        & (tab.counts >= min_child_count)
+        & (counts >= min_child_count)
         & (momc <= tau_parent)
         & (dadc <= tau_parent)
     )
     order = torch.argsort((~flags).to(torch.int8), stable=True)
     return Candidates(
-        keys=tab.keys[order],
-        child_counts=tab.counts[order],
+        keys=u32(tab.keys[order]),
+        child_counts=counts[order],
         mom_counts=momc[order],
         dad_counts=dadc[order],
         n=flags.sum(),

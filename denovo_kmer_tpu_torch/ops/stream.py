@@ -3,13 +3,14 @@
 Port of ``denovo_kmer_tpu/ops/stream.py``. Raw extracted k-mers are appended to a device
 staging buffer (no sort, no sync), and only every ``accum_batches`` batches does one flush
 aggregate+merge run. Everything stays exact: the flush aggregates with the same
-``_aggregate`` as the direct path.
+aggregate as the direct path (``ops/table._aggregate_parts``).
 
 The staging buffer is written IN PLACE (the JAX package donates it to the jitted step
 instead): ``append`` and the extraction kernel (``ops.extract.extract_append``) fill rows
 ``[fill, fill + rows)`` of the same tensors and return an accumulator with a larger
 ``fill``, and ``flush`` hands the same tensors back with ``fill = 0``. Staged keys are int32
-tensors holding the uint32 key words' bits; ``fill`` is a host int, known from the schedule.
+tensors holding the uint32 key words' bits, as the tables' are; ``fill`` is a host int,
+known from the schedule.
 """
 
 from __future__ import annotations

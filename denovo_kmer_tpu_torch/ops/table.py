@@ -4,10 +4,12 @@ Port of ``denovo_kmer_tpu/ops/table.py``. The table is a sorted array of W-word 
 parallel count vector; build/merge are sort + segment-aggregate, probes are vectorized
 branch-free binary searches.
 
-Representation: key words and counts are int64 tensors holding uint32 values (0..2^32-1),
-so every comparison is the unsigned one and sums can be taken wide and wrapped with
-``& 0xFFFFFFFF`` — the uint32 arithmetic of the JAX package. ``n`` is a 0-dim int64 tensor
-on the table's device, read on the host only where the JAX package reads it.
+Representation: key words and counts are int32 tensors holding the uint32 values' bits, so a
+``KmerTable`` row costs 4W+4 B as the JAX package's does (torch has no uint32 arithmetic).
+Unsigned compares and sums widen through ``u32`` (int64 values 0..2^32-1) where they run;
+sums are taken in int64 and wrapped with ``& 0xFFFFFFFF`` — the uint32 arithmetic of the JAX
+package — before they are stored as 32 bits again. ``n`` is a 0-dim
+int64 tensor on the table's device, read on the host only where the JAX package reads it.
 
 Invariants (as in the JAX package):
 - ``keys[:n]``  valid entries, strictly increasing in lexicographic word order
@@ -17,6 +19,7 @@ Invariants (as in the JAX package):
 
 from __future__ import annotations
 
+import warnings
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +28,7 @@ import torch
 from denovo_kmer_tpu_torch.utils.device import resolve_device
 
 PAD = 0xFFFFFFFF
+_PAD_BITS = -1  # PAD as an int32 bit pattern
 _M32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)
 
@@ -35,9 +39,19 @@ def u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & _M32
 
 
+def _host_bits(a: np.ndarray) -> torch.Tensor:
+    """A CPU int32 tensor viewing the bits of a host uint32 array (no copy where the array
+    is already contiguous uint32). JAX hands out read-only arrays; the port never writes a
+    table in place, so torch's warning about them does not apply."""
+    bits = np.ascontiguousarray(np.asarray(a, np.uint32)).view(np.int32)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        return torch.from_numpy(bits)
+
+
 class KmerTable(NamedTuple):
-    keys: torch.Tensor  # (C, W) int64 uint32 values, sorted, padding last
-    counts: torch.Tensor  # (C,) int64 uint32 values
+    keys: torch.Tensor  # (C, W) int32 — uint32 key words, bit for bit; sorted, padding last
+    counts: torch.Tensor  # (C,) int32 — uint32 counts, bit for bit
     n: torch.Tensor  # () int64 — number of valid entries
 
     @property
@@ -53,8 +67,8 @@ def empty_table(capacity: int, words: int, device=None) -> KmerTable:
     """An empty table on ``device`` (``None``: the card)."""
     device = resolve_device(device)
     return KmerTable(
-        keys=torch.full((capacity, words), PAD, dtype=torch.int64, device=device),
-        counts=torch.zeros((capacity,), dtype=torch.int64, device=device),
+        keys=torch.full((capacity, words), _PAD_BITS, dtype=torch.int32, device=device),
+        counts=torch.zeros((capacity,), dtype=torch.int32, device=device),
         n=torch.zeros((), dtype=torch.int64, device=device),
     )
 
@@ -62,11 +76,11 @@ def empty_table(capacity: int, words: int, device=None) -> KmerTable:
 def table_from_numpy(keys: np.ndarray, counts: np.ndarray, n: int, device=None) -> KmerTable:
     """A table on ``device`` (``None``: the card) from host arrays: uint32 (C, W) keys,
     uint32 (C,) counts and the int ``n`` — what ``np.asarray`` gives of a JAX
-    ``KmerTable``'s leaves."""
+    ``KmerTable``'s leaves. On the CPU the tensors view the arrays' bits (no copy)."""
     device = resolve_device(device)
     return KmerTable(
-        keys=torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64)).to(device),
-        counts=torch.from_numpy(np.asarray(counts, np.uint32).astype(np.int64)).to(device),
+        keys=_host_bits(keys).to(device),
+        counts=_host_bits(counts).to(device),
         n=torch.tensor(int(n), dtype=torch.int64, device=device),
     )
 
@@ -146,8 +160,9 @@ def _unpack_sort_keys(keys: Sequence[torch.Tensor], W: int) -> List[torch.Tensor
 
 
 def _filled(parts, N: int, col: int, dev) -> torch.Tensor:
-    """Weight column ``col`` of ``parts`` as one (N,) int64 tensor, 0 on invalid rows; a
-    part's weight is a (n,) tensor or an int for every row."""
+    """Weight column ``col`` of ``parts`` as one (N,) int64 tensor of uint32 values, 0 on
+    invalid rows; a part's weight is a (n,) tensor (uint32 values, or int32 bits) or an int
+    for every row."""
     out = torch.empty((N,), dtype=torch.int64, device=dev)
     at = 0
     for rows, valid, weights in parts:
@@ -156,6 +171,8 @@ def _filled(parts, N: int, col: int, dev) -> torch.Tensor:
         seg = out[at:at + n]
         if isinstance(w, torch.Tensor):
             seg.copy_(w)
+            if w.dtype != torch.int64:
+                seg &= _M32
         else:
             seg.fill_(w)
         if valid is not None:
@@ -179,8 +196,8 @@ def _sorted_groups(parts):
     """One key sort over the rows of ``parts`` ((rows, valid, weights) blocks, see
     ``_part_sort_keys``): → (sorted sort keys, the permutation, the sorted row where each
     group of equal keys starts, ascending). Invalid rows carry the padding key, so they
-    sort last. One host sync (the group count). Memory: the (N,) int64 sort key, the
-    sort's output, permutation and scratch; nothing of width W."""
+    sort last. One host sync (the group count). Memory: the (N,) int64 sort key (two for
+    W > 2), the sort's output, permutation and scratch; nothing of width W."""
     N = sum(_rows_shape(rows)[0] for rows, _v, _w in parts)
     keys = None
     at = 0
@@ -198,9 +215,20 @@ def _sorted_groups(parts):
         s_key, perm = torch.sort(keys.pop(), stable=True)
         s_keys = [s_key]
     else:
-        perm = lex_argsort(keys)
-        s_keys = [k[perm] for k in keys]
-    del keys
+        # two keys (W = 3, 4): ``lex_argsort``'s two stable sorts, each key dropped once it
+        # is used — sort the low key, carry the high key into that order, stable-sort it —
+        # so at most five (N,) int64 columns live beside one sort's scratch
+        hi, lo = keys
+        del keys
+        s_lo, perm = torch.sort(lo, stable=True)
+        del lo
+        hi = hi[perm]
+        s_hi, order = torch.sort(hi, stable=True)
+        del hi
+        perm = perm[order]
+        s_lo = s_lo[order]
+        del order
+        s_keys = [s_hi, s_lo]
     starts = torch.nonzero(group_heads(s_keys)).squeeze(1)
     return s_keys, perm, starts
 
@@ -227,10 +255,11 @@ def _aggregate_parts(parts, capacity: int):
     """Sort the rows of ``parts`` ((rows, valid, weights) blocks; see ``_part_sort_keys``
     and ``_filled``) by key, group equal keys and sum each weight column per group.
 
-    Returns (keys (capacity, W), cols [(capacity,) ...], n): the same result as the JAX
-    ``_aggregate_multi`` over the concatenated blocks. Invalid rows take the all-ones key
-    with weight 0, so they sort last and either join a real all-ones k-mer's group (adding
-    0) or form one weight-0 group that is stripped; group sums are prefix differences taken
+    Returns (keys (capacity, W), cols [(capacity,) ...], n), keys and columns as int32 bits
+    of the uint32 values: the same result as the JAX ``_aggregate_multi`` over the
+    concatenated blocks. Invalid rows take the all-ones key with weight 0, so they sort
+    last and either join a real all-ones k-mer's group (adding 0) or form one weight-0
+    group that is stripped; group sums are prefix differences taken
     in int64 and wrapped to 32 bits, which equals JAX's uint32 prefix differences. ``n`` is
     the true unique count; if it exceeds ``capacity`` the overflow groups are dropped
     (callers check host-side). The rows are never concatenated: the sort runs on one int64
@@ -245,7 +274,7 @@ def _aggregate_parts(parts, capacity: int):
     dev = perm.device
     U = starts.shape[0]
     take = min(U, capacity)
-    out_keys = torch.full((capacity, W), PAD, dtype=torch.int64, device=dev)
+    out_keys = torch.full((capacity, W), _PAD_BITS, dtype=torch.int32, device=dev)
     for w, col in enumerate(_unpack_sort_keys([k[starts[:take]] for k in s_keys], W)):
         out_keys[:take, w] = col
     # strip the all-zero-weight all-ones last group formed by invalid rows (if any); a
@@ -258,8 +287,8 @@ def _aggregate_parts(parts, capacity: int):
     cols = []
     for c in range(n_cols):
         sums, last = _group_sums(parts, c, perm, starts, take, N)
-        col = torch.zeros((capacity,), dtype=torch.int64, device=dev)
-        col[:take] = sums
+        col = torch.zeros((capacity,), dtype=torch.int32, device=dev)
+        col[:take] = sums  # int64 uint32 values stored as their 32 bits
         cols.append(col)
         strip &= last == 0
     n_unique = U - strip.to(torch.int64)
@@ -267,8 +296,8 @@ def _aggregate_parts(parts, capacity: int):
 
 
 def _aggregate_multi(
-    kmers: torch.Tensor,  # (N, W) int64 uint32 values
-    weight_cols: Sequence[torch.Tensor],  # (N,) int64 uint32 values — summed per group
+    kmers: torch.Tensor,  # (N, W) uint32 words: int32 bits or int64 values
+    weight_cols: Sequence[torch.Tensor],  # (N,) uint32 values or bits — summed per group
     valid: torch.Tensor,  # (N,) bool
     capacity: int,
 ):
@@ -278,22 +307,15 @@ def _aggregate_multi(
     return _aggregate_parts([(kmers, valid, list(weight_cols))], capacity)
 
 
-def _aggregate(kmers, weights, valid, capacity: int) -> KmerTable:
-    """Single-weight-column aggregation → KmerTable (see ``_aggregate_multi``)."""
-    keys, cols, n = _aggregate_multi(kmers, [weights], valid, capacity)
+def build_table(kmers: torch.Tensor, valid: torch.Tensor, capacity: int) -> KmerTable:
+    """Build a table from a k-mer stream; each valid k-mer contributes count 1."""
+    keys, cols, n = _aggregate_parts(
+        [(kmers.reshape(-1, kmers.shape[-1]), valid.reshape(-1), [1])], capacity)
     return KmerTable(keys=keys, counts=cols[0], n=n)
 
 
-def build_table(kmers: torch.Tensor, valid: torch.Tensor, capacity: int) -> KmerTable:
-    """Build a table from a k-mer stream; each valid k-mer contributes count 1."""
-    flat = u32(kmers.reshape(-1, kmers.shape[-1]))
-    v = valid.reshape(-1)
-    ones = torch.ones((flat.shape[0],), dtype=torch.int64, device=flat.device)
-    return _aggregate(flat, ones, v, capacity)
-
-
 def _sticky_overflow_n(n_out, capacity: int, *input_overflows):
-    """Overflow drops rows silently inside _aggregate and a LATER aggregate would recompute
+    """Overflow drops rows silently inside an aggregate and a LATER one would recompute
     ``n`` from the survivors, masking the loss — so once any input has overflowed its own
     capacity, pin the output ``n`` above ``capacity`` so the host-side check always fires."""
     sticky = torch.zeros((), dtype=torch.bool, device=n_out.device)
@@ -323,16 +345,20 @@ def ingest_batch(table: KmerTable, kmers: torch.Tensor, valid: torch.Tensor,
 
 
 def _lex_less(a_words, b_words) -> torch.Tensor:
+    """Row-wise unsigned lexicographic ``a < b`` over word columns (uint32 values or int32
+    bits): a word at or above 2^31 orders after one below it."""
     lt = torch.zeros(a_words[0].shape, dtype=torch.bool, device=a_words[0].device)
     eq = torch.ones(a_words[0].shape, dtype=torch.bool, device=a_words[0].device)
     for aw, bw in zip(a_words, b_words):
+        aw, bw = u32(aw), u32(bw)
         lt = lt | (eq & (aw < bw))
         eq = eq & (aw == bw)
     return lt
 
 
 def probe_table(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
-    """Vectorized lower-bound binary search: queries (..., W) uint32 values → counts (...,).
+    """Vectorized lower-bound binary search: queries (..., W) uint32 values or int32 bits →
+    counts (...,) int64 uint32 values.
 
     Absent k-mers (and probes landing on padding) return 0, matching the oracle's
     ``table.get(K, 0)`` (SPEC_SEMANTICS §6). log2(C) rounds of branch-free compare/select;
@@ -351,10 +377,10 @@ def probe_table(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
         lo = torch.where(less, mid + 1, lo)
         hi = torch.where(less, hi, mid)
     idx = lo.clamp(max=C - 1)
-    found_k = table.keys[idx]
+    found_k = u32(table.keys[idx])
     hit = torch.ones((N,), dtype=torch.bool, device=q.device)
     for w in range(W):
         hit = hit & (found_k[:, w] == q[:, w])
     hit = hit & (lo < C) & (lo < table.n)
-    out = torch.where(hit, table.counts[idx], 0)
+    out = torch.where(hit, u32(table.counts[idx]), 0)
     return out.reshape(queries.shape[:-1])

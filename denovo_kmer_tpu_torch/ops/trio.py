@@ -11,7 +11,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from denovo_kmer_tpu_torch.ops.table import KmerTable
+from denovo_kmer_tpu_torch.ops.table import KmerTable, u32
 
 
 class Candidates(NamedTuple):
@@ -34,10 +34,10 @@ def candidate_flags(
     """Parental counts of every child unique k-mer → (flags, mom_counts, dad_counts)."""
     from denovo_kmer_tpu_torch.ops.join import join_tables_on_child
 
-    _, _, mom_counts, dad_counts, child_valid = join_tables_on_child(child, mom, dad)
+    _, child_counts, mom_counts, dad_counts, child_valid = join_tables_on_child(child, mom, dad)
     flags = (
         child_valid
-        & (child.counts >= min_child_count)
+        & (child_counts >= min_child_count)
         & (mom_counts <= tau_parent)
         & (dad_counts <= tau_parent)
     )
@@ -58,8 +58,8 @@ def call_candidates(
     )
     order = torch.argsort((~flags).to(torch.int8), stable=True)
     return Candidates(
-        keys=child.keys[order],
-        child_counts=child.counts[order],
+        keys=u32(child.keys[order]),
+        child_counts=u32(child.counts[order]),
         mom_counts=mom_counts[order],
         dad_counts=dad_counts[order],
         n=flags.sum(),

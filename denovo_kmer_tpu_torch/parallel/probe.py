@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 
 from denovo_kmer_tpu_torch.ops.join import probe_table_sorted
-from denovo_kmer_tpu_torch.ops.table import KmerTable, _aggregate_multi
+from denovo_kmer_tpu_torch.ops.table import KmerTable, _aggregate_multi, u32
 from denovo_kmer_tpu_torch.parallel.mesh import AXIS_READS, AXIS_TABLE, Mesh, all_to_all, psum
 from denovo_kmer_tpu_torch.parallel.router import bucketize, route_capacity
 
@@ -50,7 +50,7 @@ def unbucketize_counts(
                       torch.zeros((N,), dtype=torch.int64, device=dev)])
     valid = torch.ones((keys.shape[0],), dtype=torch.bool, device=dev)
     _k, cols, _n = _aggregate_multi(keys, [vals], valid, N)
-    return cols[0]
+    return u32(cols[0])
 
 
 def probe_shard_alltoall(

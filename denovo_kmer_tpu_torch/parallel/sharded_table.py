@@ -64,9 +64,11 @@ from denovo_kmer_tpu_torch.ops.table import (
     PAD,
     KmerTable,
     _aggregate_multi,
+    _aggregate_parts,
     _sticky_overflow_n,
     empty_table,
     merge_tables,
+    table_from_numpy,
     u32,
     valid_rows,
 )
@@ -190,15 +192,10 @@ class ShardedKmerEngine:
         """Aggregate routed window rows into a shard's row-partial table: a KmerTable, or a
         ScoreTable whose pcounts column rides along (routed rows weigh 1, pcounts 0)."""
         C = self.shard_capacity
-        dev = ltab.keys.device
-        m = rk.shape[0]
         scored = isinstance(ltab, ScoreTable)
-        cols = [torch.cat([ltab.counts, torch.ones((m,), dtype=torch.int64, device=dev)])]
-        if scored:
-            cols.append(torch.cat([ltab.pcounts,
-                                   torch.zeros((m,), dtype=torch.int64, device=dev)]))
-        valid = torch.cat([valid_rows(ltab.n, C), rv])
-        keys, cols, n = _aggregate_multi(torch.cat([ltab.keys, u32(rk)]), cols, valid, C)
+        weights = ([ltab.counts, ltab.pcounts], [1, 0]) if scored else ([ltab.counts], [1])
+        keys, cols, n = _aggregate_parts([(ltab.keys, valid_rows(ltab.n, C), weights[0]),
+                                          (rk, rv, weights[1])], C)
         n = _sticky_overflow_n(n, C, ltab.n > C)
         if scored:
             return ScoreTable(keys=keys, counts=cols[0], pcounts=cols[1], n=n)
@@ -505,13 +502,7 @@ class ShardedKmerEngine:
         """An engine-layout table from host (T, C, W) keys, (T, C) counts and (T,) n: shard
         t on every row of column t (replicated rows, the finalize invariant); each process
         places its own cells only."""
-        def one(r, t, d):
-            return KmerTable(
-                keys=torch.from_numpy(np.asarray(keys[t], np.uint32).astype(np.int64)).to(d),
-                counts=torch.from_numpy(np.asarray(counts[t], np.uint32).astype(np.int64)).to(d),
-                n=torch.tensor(int(n[t]), dtype=torch.int64, device=d))
-
-        return self._grid(one)
+        return self._grid(lambda r, t, d: table_from_numpy(keys[t], counts[t], n[t], d))
 
     def load_table(self, path: str, backend: str = "npz") -> list:
         """Load an engine-layout checkpoint; validates the semantics hash and the shard
@@ -623,7 +614,7 @@ class ShardedKmerEngine:
             n_fold = self._max_n(stab)
             if n_fold > self.shard_capacity:
                 raise RuntimeError(_sharded_overflow_msg(n_fold, self.shard_capacity))
-            nchild = self._reduce([(tab.counts >= 1).sum() for tab in self._local(stab)],
+            nchild = self._reduce([(tab.counts != 0).sum() for tab in self._local(stab)],
                                   "sum")
             return self.call_score(stab, replicated_fetch), nchild // self.R
 
@@ -631,7 +622,7 @@ class ShardedKmerEngine:
         W = self.W
 
         def call(keys, cols, valid, _n_all):
-            words = [torch.where(valid, keys[:, w], PAD) for w in range(W)]
+            words = [torch.where(valid, u32(keys[:, w]), PAD) for w in range(W)]
             cnt = torch.where(valid, cols[0], 0)
             pc = torch.where(valid, cols[1], 0)
             return call_rows(words, cnt, pc, cfg.tau_parent, cfg.min_child_count)

@@ -759,7 +759,7 @@ def score_child(cfg: EngineConfig, dev: torch.device, parents: Dict[str, KmerTab
 def _call_compacted(score_tab: ScoreTable, cfg: EngineConfig,
                     m: Metrics) -> Tuple[Candidates, int]:
     """The trio call on a compacted scoring table. → (candidates, child uniques)."""
-    child_uniques = int((score_tab.counts >= 1).sum())
+    child_uniques = int((score_tab.counts != 0).sum())
     with m.timer("trio_call"):
         cands = call_from_score(score_tab, cfg.tau_parent, cfg.min_child_count)
     return cands, child_uniques
@@ -1044,7 +1044,7 @@ def run_trio_spill(
             else:
                 stab = score_pass_from_store(sp, p, stab, chunk_rows)
             _check_table(stab, cfg)
-            tables_n["child"] += int((stab.counts >= 1).sum())
+            tables_n["child"] += int((stab.counts != 0).sum())
             cands = call_from_score(stab, cfg.tau_parent, cfg.min_child_count)
             parts.append(_candidate_parts(cands))
             n = parts[-1][0].shape[0]

@@ -193,7 +193,7 @@ def test_auto_window_counts_the_flush_and_the_tables():
     mem = 85_017_493_504
     plan = cli.auto_window_plan(mem, 1 << 28, 31, 160, 16384)
     S, C = plan["window_rows"], 1 << 28
-    assert plan["peak"] >= (C + S) * cli.FLUSH_BYTES_PER_ROW + 3 * C * 24
+    assert plan["peak"] >= (C + S) * cli.FLUSH_BYTES_PER_ROW + 3 * C * 12
     assert plan["peak"] <= plan["budget"]
     assert cli.auto_window_plan(mem, 1 << 29, 31, 160, 16384)["batches"] == 1
     spill = cli.auto_window_plan(mem, 1 << 26, 31, 160, 16384, passes=4,
@@ -331,7 +331,7 @@ def test_call_lane_seed_keeps_only_its_tight_capacity():
     cap = 1 << (n - 1).bit_length()
     assert not flushed and 1024 <= cap < 2 << 12 and seed.capacity == cap
     for t in (seed.keys, seed.counts, seed.pcounts):
-        assert t.untyped_storage().nbytes() == t.numel() * 8
+        assert t.untyped_storage().nbytes() == t.numel() * 4
     want = jscore.seed_score_table(
         *[jtable.KmerTable(jnp.asarray(t.keys.numpy().astype(np.uint32)),
                            jnp.asarray(t.counts.numpy().astype(np.uint32)), jnp.int32(int(t.n)))
