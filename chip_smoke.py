@@ -248,7 +248,9 @@ import time
 import zlib
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":  # a spawn worker of the host's pools runs numpy alone; a
+    import torch               # phase-10 rank imports torch itself (_multihost_worker)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ["extract_kmers", "radix_partition", "block_sort"]
@@ -1085,17 +1087,24 @@ def reference_counts(codes, k=K):
     """Host numpy reference: unique canonical k-mers of every valid window (uint64 values
     where k <= 32, else (m, 2) uint64 (hi, lo) rows, ascending), their counts, and the
     number of valid windows."""
-    hi, lo, valid = window_words(codes, k)
-    if hi is None:
-        keys, counts = np.unique(lo[valid], return_counts=True)
-        return keys, counts, int(valid.sum())
-    rows = np.stack([hi[valid], lo[valid]], axis=1)
-    del hi, lo
-    rows = rows[lex_order(rows[:, 0], rows[:, 1])]
-    start = np.ones(rows.shape[0], bool)
-    start[1:] = (rows[1:] != rows[:-1]).any(axis=1)
-    at = np.nonzero(start)[0]
-    return rows[at], np.diff(np.append(at, rows.shape[0])), int(valid.sum())
+    rows = canonical_rows(codes, k)
+    if rows.shape[1] == 1:
+        keys, counts = sorted_counts(rows[:, 0])
+        return keys, counts, rows.shape[0]
+    keys, counts = unique_pairs(rows[:, 0], rows[:, 1])
+    order = lex_order(keys[:, 0], keys[:, 1])
+    return keys[order], counts[order], rows.shape[0]
+
+
+def sorted_counts(values):
+    """The distinct values of the uint64 array ``values`` (sorted in place) ascending, and
+    their counts: one value sort, where ``np.unique`` sorts a copy and makes more."""
+    values.sort()
+    n = values.size
+    new = np.ones(n, bool)
+    np.not_equal(values[1:], values[:-1], out=new[1:])
+    at = np.flatnonzero(new)
+    return values[at], np.diff(at, append=n)
 
 
 def references(jobs, workers=4):
@@ -2543,8 +2552,10 @@ def _multihost_worker(rank, world, port, job):
     """One rank of a phase-10 launch: join the gloo group, run each case of ``job`` with
     run_trio_multihost on a mesh of MH_LOCAL copies of cuda:0 at phase 4's config, write
     each case's report and measurements under ``job["out"]``."""
+    global torch
     import warnings
 
+    import torch
     import torch.distributed as dist
 
     from denovo_kmer_tpu_torch.oracle.scalar import format_report
@@ -3313,6 +3324,7 @@ def lex_order(hi, lo):
 
 
 _MIX = np.uint64(0x9E3779B97F4A7C15)
+_MIX_INV = np.uint64(pow(0x9E3779B97F4A7C15, -1, 1 << 64))  # odd: v -> v * _MIX is one to one
 
 
 def bucket_of(rows, n_buckets):
@@ -3358,8 +3370,10 @@ def _values(name, spec, k):
 def scale_chunk_task(spec, work, values, sample, chunk, k, n_buckets, bam=True):
     """A worker's chunk: make its reads (from the haplotypes in ``work``), their BAM records
     as BGZF blocks (``bam``; else b""), and their canonical k-mers grouped by hash bucket
-    into the chunk's slot of the sample's shared values buffer ``values``. → (BGZF bytes,
-    k-mers a bucket, valid windows, seconds a step)."""
+    into the chunk's slot of the sample's shared values buffer ``values``. A one-word k-mer
+    (k <= 32) is stored as its hash ``v * _MIX``, sorted, so that each bucket (the hash's
+    top bits, ``bucket_of``) is a run found by a search; two-word rows in bucket order. →
+    (BGZF bytes, k-mers a bucket, valid windows, seconds a step)."""
     t = [time.perf_counter()]
     pos, rev, codes = scale_chunk(spec, work, sample, chunk)
     t.append(time.perf_counter())
@@ -3370,106 +3384,141 @@ def scale_chunk_task(spec, work, values, sample, chunk, k, n_buckets, bam=True):
     rows = canonical_rows(codes, k)
     del codes
     t.append(time.perf_counter())
-    bucket = bucket_of(rows, n_buckets)
-    order = np.argsort(bucket, kind="stable")
-    t.append(time.perf_counter())
+    m = rows.shape[0]
     at = chunk * _chunk_slots(spec, k)
-    with _values(values, spec, k) as store:
-        for c in range(rows.shape[1]):
-            np.take(rows[:, c], order, out=store[c, at:at + rows.shape[0]])
+    if rows.shape[1] == 1:
+        h = rows[:, 0]
+        h *= _MIX
+        h.sort()
+        edges = np.arange(1, n_buckets, dtype=np.uint64) << np.uint64(65 - n_buckets.bit_length())
+        counts = np.diff(np.searchsorted(h, edges), prepend=0, append=m)
+        t.append(time.perf_counter())
+        with _values(values, spec, k) as store:
+            store[0, at:at + m] = h
+    else:
+        bucket = bucket_of(rows, n_buckets)
+        order = np.argsort(bucket, kind="stable")
+        counts = np.bincount(bucket, minlength=n_buckets)
+        t.append(time.perf_counter())
+        with _values(values, spec, k) as store:
+            for c in range(rows.shape[1]):
+                np.take(rows[:, c], order, out=store[c, at:at + m])
     t.append(time.perf_counter())
     seconds = dict(zip(("reads", "bam", "kmers", "buckets", "store"), np.diff(t)))
-    return blob, np.bincount(bucket, minlength=n_buckets), rows.shape[0], seconds
+    return blob, counts, m, seconds
 
 
 def _bucket_path(work, sample, b, what):
     return os.path.join(work, f"{sample}.b{b}.{what}.npy")
 
 
+def _in_sorted(a, s):
+    """Which values of ``a`` are in the ascending array ``s``."""
+    if not s.size:
+        return np.zeros(a.shape, bool)
+    return s[np.minimum(np.searchsorted(s, a), s.size - 1)] == a
+
+
 def scale_bucket_task(spec, work, values, sample, b, k, counts):
     """A worker's bucket: the sample's k-mers of bucket ``b`` from every chunk's slot of the
-    shared values buffer, counted (``np.unique``; ``lex_order`` for two-column rows) and
-    saved to ``work``; for the child also the bucket's candidates (count >= 2, the CLI's
-    --min-child-count, and absent from both parents' bucket ``b``: --tau-parent 0). →
-    {"n": uniques, "windows": their count sum[, "cand_keys", "cand_counts"]}."""
+    shared values buffer, counted (``sorted_counts`` of the hashes for one-word k-mers,
+    ``unique_pairs`` for two-word rows) and saved to ``work`` (values, not hashes); for the
+    child also the bucket's candidates (count >= 2, the CLI's --min-child-count, and absent
+    from both parents' bucket ``b``: --tau-parent 0). → {"n": uniques, "windows": their
+    count sum[, "cand_keys", "cand_counts"]}."""
     slots = _chunk_slots(spec, k)
     starts = np.cumsum(counts, axis=1) - counts
     with _values(values, spec, k) as store:
         cols = [np.concatenate([plane[c * slots + starts[c, b]:
                                       c * slots + starts[c, b] + counts[c, b]]
                                 for c in range(counts.shape[0])]) for plane in store]
-    if len(cols) == 1:
-        keys, cnt = np.unique(cols[0], return_counts=True)
-        keys = keys[:, None]
-    else:
+    wide = len(cols) == 2
+    if wide:
         keys, cnt = unique_pairs(*cols)
         del cols
+    else:
+        hashes, cnt = sorted_counts(cols.pop())
+        keys = (hashes * _MIX_INV)[:, None]
     np.save(_bucket_path(work, sample, b, "keys"), keys)
     np.save(_bucket_path(work, sample, b, "counts"), cnt)
     out = {"n": keys.shape[0], "windows": int(cnt.sum())}
     if sample == "child":
         keep = cnt >= 2
-        cand, ccnt = keys[keep], cnt[keep]
+        cand, ccnt = (keys if wide else hashes)[keep], cnt[keep]
         for parent in ("mom", "dad"):
             pk = np.load(_bucket_path(work, parent, b, "keys"))
-            seen = (np.isin(cand[:, 0], pk[:, 0]) if keys.shape[1] == 1
-                    else _rows_in(cand, pk))
+            # a parent's values were saved in its hashes' ascending order
+            seen = _rows_in(cand, pk) if wide else _in_sorted(cand, pk[:, 0] * _MIX)
             cand, ccnt = cand[~seen], ccnt[~seen]
-        out["cand_keys"], out["cand_counts"] = cand, ccnt
+        out["cand_keys"] = cand if wide else (cand * _MIX_INV)[:, None]
+        out["cand_counts"] = ccnt
     return out
 
 
-def scale_trio(spec, work, k=K, n_buckets=SCALE_BUCKETS, workers=None, haplotypes=None):
+def scale_trio(spec, work, k=K, n_buckets=SCALE_BUCKETS, workers=None, haplotypes=None,
+               pool=None, slots=None):
     """Write the trio's haplotypes (unless ``haplotypes``, ``scale_haplotypes``' result for
     ``work``, says they are there) and BAMs (``work/{sample}.bam``, one reference
-    ``spec.ref_name``) and its hash-bucketed numpy reference at ``k`` (``scale_counts``).
-    → ``scale_counts``' dict with dnms, child_hap and seconds["haplotypes"]."""
+    ``spec.ref_name``) and its hash-bucketed numpy reference at ``k`` (``scale_counts``,
+    on ``pool`` and ``slots`` where given). → ``scale_counts``' dict with dnms, child_hap
+    and seconds["haplotypes"]."""
     t0 = time.perf_counter()
     dnms, child_hap = haplotypes or scale_haplotypes(spec, work)
     t1 = time.perf_counter()
-    out = scale_counts(spec, work, work, k, n_buckets, workers, bams=True)
+    out = scale_counts(spec, work, work, k, n_buckets, workers, bams=True, pool=pool,
+                       slots=slots)
     out["seconds"]["haplotypes"] = t1 - t0
     return dict(out, dnms=dnms, child_hap=child_hap)
 
 
 def scale_counts(spec, work, out_dir, k, n_buckets=SCALE_BUCKETS, workers=None, bams=False,
-                 live=3, nice=0, on_pool=None):
+                 live=3, nice=0, on_pool=None, pool=None, slots=None):
     """The trio's hash-bucketed numpy reference at ``k`` from the haplotypes in ``work``
     (and, with ``bams``, its BAMs written there) on a spawn process pool: chunk tasks make
     the reads, write their BAM records and put their k-mers, grouped by bucket, into a
     shared memory buffer a sample (``values_bytes``); bucket tasks count each bucket into
     ``out_dir`` (the child's after both parents'). At most ``live`` samples' buffers exist
     at once: a sample's buffer is created once an earlier one is released. The workers run
-    at ``nice``; ``on_pool(pool)`` is told of the pool (to cancel it). → dict(paths
-    (with ``bams``), ref {sample: {"n", "windows"}}, candidates [(value, child count, 0,
-    0)] ascending, seconds: chunks (until every chunk is in), buckets (the rest),
-    first_chunk (the pool's start and first task), and chunk_task_s (the chunk tasks'
-    seconds by step, summed over workers))."""
+    at ``nice``; ``on_pool(pool)`` is told of the pool (to cancel it). Given ``pool``, its
+    workers run the tasks and it stays open; given ``slots`` (shared memory buffers of at
+    least ``values_bytes`` each, made once and so paged in once), a sample takes a free
+    one in place of a buffer of its own and ``live`` is their number. → dict(paths (with
+    ``bams``), ref {sample: {"n", "windows"}}, candidates [(value, child count, 0, 0)]
+    ascending, seconds: chunks (until every chunk is in), buckets (the rest), first_chunk
+    (the pool's start and first task), and chunk_task_s (the chunk tasks' seconds by step,
+    summed over workers))."""
     from multiprocessing import shared_memory
 
     from denovo_kmer_tpu_torch.io.bgzf import BGZF_EOF
 
     t1 = time.perf_counter()
     shms, paths, ref, cands, parts, task_s, first = {}, {}, {}, [], {}, {}, None
-    ctx = multiprocessing.get_context("spawn")
+    free = None if slots is None else list(slots)
+    live = live if slots is None else len(slots)
     try:
-        with concurrent.futures.ProcessPoolExecutor(
-                workers or os.cpu_count(), mp_context=ctx,
-                initializer=os.nice if nice else None, initargs=(nice,) if nice else ()) as pool:
-            if on_pool:
-                on_pool(pool)
+        with contextlib.ExitStack() as stack:
+            if pool is None:
+                pool = stack.enter_context(concurrent.futures.ProcessPoolExecutor(
+                    workers or os.cpu_count(), mp_context=multiprocessing.get_context("spawn"),
+                    initializer=os.nice if nice else None, initargs=(nice,) if nice else ()))
+                if on_pool:
+                    on_pool(pool)
 
             def start(sample):
-                shms[sample] = shared_memory.SharedMemory(create=True,
-                                                          size=values_bytes(spec, k))
+                shms[sample] = (free.pop(0) if free is not None else
+                                shared_memory.SharedMemory(create=True,
+                                                           size=values_bytes(spec, k)))
                 return [pool.submit(scale_chunk_task, spec, work, shms[sample].name, sample,
                                     c, k, n_buckets, bams) for c in range(spec.chunks)]
 
             def release(sample):
                 parts[sample] = [f.result() for f in bucket_futures.pop(sample)]
                 shm = shms.pop(sample)
-                shm.close()
-                shm.unlink()
+                if free is not None:
+                    free.append(shm)
+                else:
+                    shm.close()
+                    shm.unlink()
 
             chunk_futures = {s: start(s) for s in SCALE_SAMPLES[:live]}
             bucket_futures = {}
@@ -3505,9 +3554,10 @@ def scale_counts(spec, work, out_dir, k, n_buckets=SCALE_BUCKETS, workers=None, 
             t2 = time.perf_counter()
             release("child")
     finally:
-        for shm in shms.values():
-            shm.close()
-            shm.unlink()
+        if free is None:
+            for shm in shms.values():
+                shm.close()
+                shm.unlink()
     for sample in SCALE_SAMPLES:
         n, held = (sum(p[key] for p in parts[sample]) for key in ("n", "windows"))
         if held != ref[sample]["windows"]:
@@ -3523,6 +3573,36 @@ def scale_counts(spec, work, out_dir, k, n_buckets=SCALE_BUCKETS, workers=None, 
     return dict(paths=paths, ref=ref, candidates=cands,
                 seconds={"chunks": t2 - t1, "buckets": time.perf_counter() - t2,
                          "first_chunk": first - t1, "chunk_task_s": task_s})
+
+
+@contextlib.contextmanager
+def scale_slots(spec, ks, share=None):
+    """Shared k-mer buffers for ``scale_counts``' ``slots``: each of the largest
+    ``values_bytes`` over ``ks``, as many (at most 3, one a sample) as fit ``share``
+    (``SWEEP_SHM_SHARE``) of the host's available memory; it fails before any is made if
+    not even one does. Unlinked on exit."""
+    from multiprocessing import shared_memory
+
+    host = host_memory()
+    size = max(values_bytes(spec, k) for k in ks)
+    live = min(3, int((share or SWEEP_SHM_SHARE) * host["available"]) // size)
+    print(f"scale references k={','.join(map(str, ks))}: host RAM {host['total'] / 1e9:.1f} "
+          f"GB, {host['available'] / 1e9:.1f} GB available; {size / 1e9:.1f} GB of k-mer "
+          f"values a sample at most, {live} buffers", file=sys.stderr, flush=True)
+    if live < 1:
+        raise AssertionError(
+            f"the references need {size / 1e9:.1f} GB of shared memory a sample, more than "
+            f"{share or SWEEP_SHM_SHARE:.0%} of the host's {host['available'] / 1e9:.1f} GB "
+            "available: refusing to run into swap")
+    slots = []
+    try:
+        for _ in range(live):
+            slots.append(shared_memory.SharedMemory(create=True, size=size))
+        yield slots
+    finally:
+        for shm in slots:
+            shm.close()
+            shm.unlink()
 
 
 def scale_reference_table(work, sample, n_buckets=SCALE_BUCKETS):
@@ -3791,17 +3871,16 @@ def phase_scale(work, spec=ScaleSpec(), early=None):
     each run's extraction must launch once a batch (and the partition once a staging
     window in (b)), and no table step may hold more device bytes a row than the CLI's auto
     model counts for its W. The BAMs and haplotypes stay in ``work/scale`` for phase 13;
-    the reference's bucket files go. With ``early`` (``EarlyReferences``) the haplotypes are
-    its, and this phase's pool starts once its references have ended. → {"dir", "data",
-    "report", "runs": {name: {"launches"}}}."""
-    if early is None:
-        sdir, haplotypes = os.path.join(work, "scale"), None
-        os.makedirs(sdir)
-    else:
-        sdir, haplotypes = early.sdir, early.haplotypes
-        early.wait()
+    the reference's bucket files go. With ``early`` (``ScaleJobs``) the trio and its
+    reference are the background job's, waited for here. → {"dir", "data", "report",
+    "runs": {name: {"launches"}}}."""
     t0 = time.perf_counter()
-    data = scale_trio(spec, sdir, haplotypes=haplotypes)
+    if early is None:
+        sdir = os.path.join(work, "scale")
+        os.makedirs(sdir)
+        data = scale_trio(spec, sdir)
+    else:
+        sdir, data = early.sdir, early.data()
     t1 = time.perf_counter()
     want = report_text(data["candidates"], K)
     batches = 3 * -(-spec.reads // 16384)
@@ -3859,6 +3938,8 @@ def phase_scale(work, spec=ScaleSpec(), early=None):
             os.remove(os.path.join(sdir, name))
     emit({"phase": "scale", "spec": dataclasses.asdict(spec), "reads_per_sample": spec.reads,
           "card_bytes": mem, "data_s": t1 - t0, "data_seconds": data["seconds"],
+          "background": None if early is None else {
+              "workers": early.workers, "data_ended_after_s": early.ended_s.get("data")},
           "reference": data["ref"], "candidates": len(data["candidates"]),
           "planted_dnms": spec.dnms, "dnms_recovered": spec.dnms - len(missed),
           "dnms_hidden": missed,
@@ -3871,10 +3952,10 @@ def phase_scale(work, spec=ScaleSpec(), early=None):
 # phase 13: BASELINE config 4 at a real size, the k sweep over phase 12's trio
 # ---------------------------------------------------------------------------------------
 
-#: share of the host's available memory phase 13's shared k-mer buffers may take (the rest
-#: is the workers' own arrays: a k > 32 bucket task holds ~2 GB)
+#: share of the host's available memory the references' shared k-mer buffers may take (the
+#: rest is the workers' own arrays: a k > 32 bucket task holds ~2 GB)
 SWEEP_SHM_SHARE = 0.6
-#: phase 13's reference workers beside phases 1-11, at nice 19: one a core
+#: the background pool of phases 12 and 13's references, at nice 19: one worker a core
 EARLY_WORKERS = os.cpu_count()
 
 
@@ -3886,31 +3967,36 @@ def host_memory():
             for key, name in (("total", "MemTotal"), ("available", "MemAvailable"))}
 
 
-def sweep_references(spec, sdir, ks, workers=None, nice=0, on_pool=None):
+def sweep_references(spec, sdir, ks, workers=None, nice=0, on_pool=None, pool=None,
+                     slots=None):
     """Phase 13's numpy reference at each k of ``ks`` over phase 12's reads (its haplotypes
-    in ``sdir``): ``scale_counts`` without BAMs, one k at a time, with at most as many
-    samples' shared buffers as fit ``SWEEP_SHM_SHARE`` of the host's available memory; it
-    fails before a k starts if not even one does. ``workers``, ``nice`` and ``on_pool`` go
-    to ``scale_counts``. → {k: {"ref", "candidates", "live", "host", "seconds",
+    in ``sdir``): ``scale_counts`` without BAMs, one k at a time. Given ``slots``
+    (``scale_slots``) the k's share them; else each k takes at most as many samples' shared
+    buffers as fit ``SWEEP_SHM_SHARE`` of the host's available memory, and fails before it
+    starts if not even one does. ``workers``, ``nice``, ``on_pool`` and ``pool`` go to
+    ``scale_counts``. → {k: {"ref", "candidates", "live", "host", "seconds",
     "steps_s"}}."""
     refs = {}
     for k in ks:
         host = host_memory()
-        size = values_bytes(spec, k)
-        live = min(3, int(SWEEP_SHM_SHARE * host["available"]) // size)
-        print(f"phase 13 reference k={k}: host RAM {host['total'] / 1e9:.1f} GB, "
-              f"{host['available'] / 1e9:.1f} GB available; {size / 1e9:.1f} GB of k-mer "
-              f"values a sample, {live} at a time", file=sys.stderr, flush=True)
-        if live < 1:
-            raise AssertionError(
-                f"the k={k} reference needs {size / 1e9:.1f} GB of shared memory a sample, "
-                f"more than {SWEEP_SHM_SHARE:.0%} of the host's "
-                f"{host['available'] / 1e9:.1f} GB available: refusing to run into swap")
+        if slots is None:
+            size = values_bytes(spec, k)
+            live = min(3, int(SWEEP_SHM_SHARE * host["available"]) // size)
+            print(f"phase 13 reference k={k}: host RAM {host['total'] / 1e9:.1f} GB, "
+                  f"{host['available'] / 1e9:.1f} GB available; {size / 1e9:.1f} GB of "
+                  f"k-mer values a sample, {live} at a time", file=sys.stderr, flush=True)
+            if live < 1:
+                raise AssertionError(
+                    f"the k={k} reference needs {size / 1e9:.1f} GB of shared memory a "
+                    f"sample, more than {SWEEP_SHM_SHARE:.0%} of the host's "
+                    f"{host['available'] / 1e9:.1f} GB available: refusing to run into swap")
+        else:
+            live = len(slots)
         kdir = os.path.join(sdir, f"k{k}")
         os.makedirs(kdir)
         t0 = time.perf_counter()
         out = scale_counts(spec, sdir, kdir, k, workers=workers, live=live, nice=nice,
-                           on_pool=on_pool)
+                           on_pool=on_pool, pool=pool, slots=slots)
         shutil.rmtree(kdir)
         refs[k] = {"ref": out["ref"], "candidates": out["candidates"], "live": live,
                    "host": host, "seconds": time.perf_counter() - t0,
@@ -3918,16 +4004,16 @@ def sweep_references(spec, sdir, ks, workers=None, nice=0, on_pool=None):
     return refs
 
 
-class EarlyReferences:
-    """Phase 13's references (``sweep_references`` at each k of ``SWEEP_KS`` but phase 12's)
-    computed from the script's start in a background thread, on ``EARLY_WORKERS`` spawn
-    workers at nice 19: phases 1-11 leave most of the host's cores idle, and the
-    references alone take about 9 minutes of an 8-core host. Phases 1-11 run somewhat
-    slower beside them. The haplotypes are written first, into
-    ``work/scale``, and phase 12 reuses them. ``wait()`` holds phase 12 back until the
-    references end, so that the two pools never hold their shared buffers at once;
-    ``result()`` returns them or raises their error; ``cancel()`` stops the pool and joins
-    the thread."""
+class ScaleJobs:
+    """Phase 12's trio (its BAMs and its numpy reference at k = 31, ``scale_trio``) and then
+    phase 13's references (``sweep_references`` at each other k of ``SWEEP_KS``), made from
+    the script's start in a background thread, beside phases 1-11, on one spawn pool of
+    ``EARLY_WORKERS`` workers at nice 19 and one set of shared k-mer buffers
+    (``scale_slots``, paged in once for all four ks). Phases 1-11 leave most of the host's
+    cores idle; they run somewhat slower beside the pool. The haplotypes are written first,
+    into ``work/scale``. ``data()`` waits for phase 12's trio and returns it, ``refs()``
+    for phase 13's references (each raises the job's error); ``close()`` stops the pool,
+    joins the thread and frees the buffers."""
 
     def __init__(self, spec, work):
         self.sdir = os.path.join(work, "scale")
@@ -3935,36 +4021,55 @@ class EarlyReferences:
         self.haplotypes = scale_haplotypes(spec, self.sdir)
         self.workers = EARLY_WORKERS
         self.t0 = time.perf_counter()
-        self.ended_s = self.waited_s = None
-        self._pool, self._cancelled = None, False
-        self._thread = concurrent.futures.ThreadPoolExecutor(1)
-        self._future = self._thread.submit(self._run, spec, [k for k in SWEEP_KS if k != K])
+        self.ended_s = {}
+        self.waited_s = {}
+        self._pool, self._closed = None, False
+        self._futures = {"data": concurrent.futures.Future(),
+                         "refs": concurrent.futures.Future()}
+        self._thread = threading.Thread(target=self._run, args=(spec,), daemon=True)
+        self._thread.start()
 
-    def _run(self, spec, ks):
+    def _run(self, spec):
         try:
-            return sweep_references(spec, self.sdir, ks, workers=self.workers, nice=19,
-                                    on_pool=self._track)
-        finally:
-            self.ended_s = time.perf_counter() - self.t0
+            with concurrent.futures.ProcessPoolExecutor(
+                    self.workers, mp_context=multiprocessing.get_context("spawn"),
+                    initializer=os.nice, initargs=(19,)) as pool, \
+                    scale_slots(spec, SWEEP_KS) as slots:
+                self._pool = pool
+                if self._closed:
+                    raise concurrent.futures.CancelledError()
+                self._done("data", scale_trio(spec, self.sdir, haplotypes=self.haplotypes,
+                                              pool=pool, slots=slots))
+                self._done("refs", sweep_references(spec, self.sdir,
+                                                    [k for k in SWEEP_KS if k != K],
+                                                    pool=pool, slots=slots))
+        except BaseException as e:  # noqa: BLE001  (handed to the phase that waits)
+            for f in self._futures.values():
+                if not f.done():
+                    f.set_exception(e)
 
-    def _track(self, pool):
-        self._pool = pool
-        if self._cancelled:
-            pool.shutdown(wait=False, cancel_futures=True)
+    def _done(self, name, result):
+        self.ended_s[name] = time.perf_counter() - self.t0
+        self._futures[name].set_result(result)
 
-    def wait(self):
+    def _wait(self, name):
         t0 = time.perf_counter()
-        concurrent.futures.wait([self._future])
-        self.waited_s = time.perf_counter() - t0
+        try:
+            return self._futures[name].result()
+        finally:
+            self.waited_s[name] = time.perf_counter() - t0
 
-    def result(self):
-        return self._future.result()
+    def data(self):
+        return self._wait("data")
 
-    def cancel(self):
-        self._cancelled = True
+    def refs(self):
+        return self._wait("refs")
+
+    def close(self):
+        self._closed = True
         if self._pool is not None:
             self._pool.shutdown(wait=False, cancel_futures=True)
-        self._thread.shutdown(wait=True)
+        self._thread.join()
 
 
 def phase_sweep_scale(work, spec, scale, early=None):
@@ -3975,8 +4080,8 @@ def phase_sweep_scale(work, spec, scale, early=None):
     candidates at that k and k = 31's phase 12 run (a)'s, each k's tables_n the reference's
     unique counts, the extraction must launch once a batch a k, no table step may hold
     more device bytes a row than the auto model counts for its W, and the peak may not
-    pass the modelled peak. The references are ``early``'s where given (computed beside
-    phases 1-11), else computed here. The phase's line is printed before a failed check
+    pass the modelled peak. The references are ``early``'s where given (``ScaleJobs``:
+    computed in the background from the script's start), else computed here. The phase's line is printed before a failed check
     raises."""
     from denovo_kmer_tpu_torch import cli
     from denovo_kmer_tpu_torch.config import words_per_kmer
@@ -3984,7 +4089,7 @@ def phase_sweep_scale(work, spec, scale, early=None):
     sdir, data = scale["dir"], scale["data"]
     ks = list(SWEEP_KS)
     t0 = time.perf_counter()
-    refs = (early.result() if early is not None
+    refs = (early.refs() if early is not None
             else sweep_references(spec, sdir, [k for k in ks if k != K]))
     refs[K] = {"ref": data["ref"], "candidates": data["candidates"], "live": None,
                "host": None,
@@ -4041,9 +4146,9 @@ def phase_sweep_scale(work, spec, scale, early=None):
     dev = run["device"] or {}
     emit({"phase": "sweep_scale", "power": power_line(), "ks": ks,
           "flags": argv[7:], "card_bytes": mem, "references_s": t1 - t0,
-          "early_references": None if early is None else {
+          "background": None if early is None else {
               "workers": early.workers, "ended_after_s": early.ended_s,
-              "phase12_waited_s": early.waited_s},
+              "waited_s": early.waited_s},
           "per_k": per_k, "auto": run["accum_line"], "auto_batches": run["auto_batches"],
           "modelled_peak_bytes": model, "peak_device_bytes": run["peak_device_bytes"],
           "peak_share_of_card": run["peak_device_bytes"] / mem,
@@ -4143,8 +4248,9 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
     early = None
     try:
-        # phase 13's references run from here, beside phases 1-11, on the cores they leave
-        early = EarlyReferences(ScaleSpec(seed=args.seed), work)
+        # phase 12's trio and phase 13's references are made from here, beside phases
+        # 1-11, on the cores they leave
+        early = ScaleJobs(ScaleSpec(seed=args.seed), work)
         small = phase_parity(work)
         phase_parity_buckets(work)
         phase_parity_slice(work, small)
@@ -4168,7 +4274,7 @@ def main() -> int:
             sweep_scale = phase_sweep_scale(work, ScaleSpec(seed=args.seed), scale, early)
     finally:
         if early is not None:
-            early.cancel()
+            early.close()
         shutil.rmtree(work, ignore_errors=True)
 
     main_case = next(c for c in cases if c["k"] == K and c["canonical"] and c["max_read_len"]

@@ -248,3 +248,83 @@ def test_unique_pairs_counts_each_pair_once(collide, monkeypatch):
     order = np.lexsort((keys[:, 1], keys[:, 0]))
     np.testing.assert_array_equal(keys[order], want)
     np.testing.assert_array_equal(counts[order], want_counts)
+
+
+@pytest.mark.parametrize("n,span", [(0, 1), (1, 1), (5000, 7), (5000, 1 << 62)])
+def test_sorted_counts_equals_np_unique(n, span):
+    """The one-word count (a value sort in place and its run starts) equals ``np.unique``."""
+    rng = np.random.default_rng(n + span % 97)
+    values = rng.integers(0, span, size=n, dtype=np.uint64)
+    want, want_counts = np.unique(values, return_counts=True)
+    keys, counts = cs.sorted_counts(values.copy())
+    np.testing.assert_array_equal(keys, want)
+    np.testing.assert_array_equal(counts, want_counts)
+
+
+def test_in_sorted_is_membership():
+    rng = np.random.default_rng(3)
+    s = np.unique(rng.integers(0, 1000, size=300, dtype=np.uint64))
+    a = rng.integers(0, 1100, size=2000, dtype=np.uint64)
+    np.testing.assert_array_equal(cs._in_sorted(a, s), np.isin(a, s))
+    assert not cs._in_sorted(a, s[:0]).any()
+
+
+@pytest.mark.parametrize("k", [15, 41])
+def test_scale_counts_on_a_shared_pool_and_buffers(trio, k, tmp_path):
+    """Given one pool and shared buffers sized for the largest k (paged in once, reused by
+    every k and sample), the reference equals the one with a pool and buffers of its own,
+    and the buffers stay open for the next k."""
+    import concurrent.futures
+    import multiprocessing
+
+    work, _ = trio
+    os.makedirs(tmp_path / "own")
+    os.makedirs(tmp_path / "shared")
+    want = cs.scale_counts(SMALL, work, str(tmp_path / "own"), k, n_buckets=8, workers=2,
+                           live=3)
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool, \
+            cs.scale_slots(SMALL, (15, 41)) as slots:
+        assert len(slots) == 3 and all(s.size == cs.values_bytes(SMALL, 41) for s in slots)
+        got = cs.scale_counts(SMALL, work, str(tmp_path / "shared"), k, n_buckets=8,
+                              pool=pool, slots=slots)
+        again = cs.scale_counts(SMALL, work, str(tmp_path / "shared"), k, n_buckets=8,
+                                pool=pool, slots=slots[:1])
+    for out in (got, again):
+        assert out["ref"] == want["ref"]
+        assert out["candidates"] == want["candidates"]
+
+
+def test_scale_slots_refuse_what_the_host_cannot_hold(monkeypatch):
+    monkeypatch.setattr(cs, "host_memory", lambda: {"total": 1 << 30, "available": 1 << 20})
+    with pytest.raises(AssertionError, match="refusing to run into swap"):
+        with cs.scale_slots(SMALL, (15, 41)):
+            pass
+
+
+def test_scale_jobs_make_the_trio_then_the_references(tmp_path, monkeypatch):
+    """The background job: phase 12's trio (BAMs, reference at k = 31) and then phase 13's
+    references at k = 15, 21, 41 on one pool, equal to ``scale_trio`` and
+    ``sweep_references`` run on their own; ``close`` ends the pool."""
+    monkeypatch.setattr(cs, "EARLY_WORKERS", 2)
+    monkeypatch.setattr(cs, "SCALE_BUCKETS", 8)
+    spec = cs.ScaleSpec(genome_len=6_000, coverage=6, chunk_reads=150, seed=21)
+    jobs = cs.ScaleJobs(spec, str(tmp_path / "jobs"))
+    try:
+        data, refs = jobs.data(), jobs.refs()
+    finally:
+        jobs.close()
+    assert not jobs._thread.is_alive()
+    assert set(jobs.ended_s) == {"data", "refs"}
+    solo = str(tmp_path / "solo")
+    os.makedirs(solo)
+    want = cs.scale_trio(spec, solo, n_buckets=8, workers=2)
+    want_refs = cs.sweep_references(spec, solo, (15, 21, 41), workers=2)
+    assert data["ref"] == want["ref"] and data["candidates"] == want["candidates"]
+    for sample in cs.SCALE_SAMPLES:
+        with open(data["paths"][sample], "rb") as f, open(want["paths"][sample], "rb") as g:
+            assert f.read() == g.read()
+    assert sorted(refs) == [15, 21, 41]
+    for k, r in refs.items():
+        assert r["ref"] == want_refs[k]["ref"]
+        assert r["candidates"] == want_refs[k]["candidates"]
