@@ -77,11 +77,12 @@ def run_trio_multi_k(
     # tables for a (4W+8)-B scoring table. The seed is the run's largest step (it sorts
     # twice the capacity) and grows with W, so the lanes seed narrowest first: the widest
     # seeds when the fewest parental tables are left (``cli.window_peak`` models this order).
+    # The seeds are part of the child's build, as in ``run_trio``.
     scorers = {k: ScoringTableBuilder(cfgs[k], dev) for k in cfgs}
     lanes = {}
-    for k in sorted(cfgs, key=lambda k: (cfgs[k].words, k)):
-        lanes[k] = scorers[k].child_lane(tables["mom"].pop(k), tables["dad"].pop(k))
     with m.timer("build_child"):
+        for k in sorted(cfgs, key=lambda k: (cfgs[k].words, k)):
+            lanes[k] = scorers[k].child_lane(tables["mom"].pop(k), tables["dad"].pop(k))
         _fold_placed(packed_batches(child_path, base_cfg, region), base_cfg, dev,
                      list(lanes.values()), m)
 

@@ -30,6 +30,7 @@ import torch
 
 from denovo_kmer_tpu_torch.ops.pack import PackedReads
 from denovo_kmer_tpu_torch.utils.device import resolve_device
+from denovo_kmer_tpu_torch.utils.metrics import span
 
 T = TypeVar("T")
 
@@ -189,7 +190,8 @@ def prefetch_placed(batches: Iterable[T], device=None, depth: int = 2,
     ``put`` overrides the placement: each host array of a batch becomes ``put(array)``
     (``device`` is then unused), and the caller orders the copies it makes. ``stats`` track
     the consumer-facing stage; a leaked decode thread (the one inside the caller's stream)
-    is reported there too, for ``close_unless_leaked``."""
+    is reported there too, for ``close_unless_leaked``. Each wait on the transfer stage is a
+    ``feed_wait`` span of the running call (``utils/metrics.py``)."""
     device = None if put is not None else resolve_device(device)
     inner_stats: dict = {}
     inner = prefetch_batches(batches, depth=decode_depth, stats=inner_stats)
@@ -215,7 +217,12 @@ def prefetch_placed(batches: Iterable[T], device=None, depth: int = 2,
 
     outer = prefetch_batches((place(b) for b in inner), depth=depth, stats=stats)
     try:
-        for item, ready in outer:
+        while True:
+            with span("feed_wait"):  # the dispatch thread waits on the transfer stage
+                placed = next(outer, None)
+            if placed is None:
+                return
+            item, ready = placed
             if ready is not None:
                 consumer = torch.cuda.current_stream(device)
                 consumer.wait_event(ready)

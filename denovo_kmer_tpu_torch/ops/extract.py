@@ -27,6 +27,7 @@ from denovo_kmer_tpu_torch.config import words_per_kmer
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, append
 from denovo_kmer_tpu_torch.ops.table import u32
 from denovo_kmer_tpu_torch.parallel.router import pass_of
+from denovo_kmer_tpu_torch.utils.metrics import span
 
 _M32 = 0xFFFFFFFF
 #: ctypes parameter kinds of ``dk_extract_kmers_append`` in ``csrc/extract_kmers.cu``
@@ -246,32 +247,33 @@ def extract_append(
         if lengths is None:
             raise ValueError("a batch needs vwords or lengths")
         _check(lengths, "lengths", (B,), dev)
-    if dev.type != "cuda":
-        return append_plain(acc, words, vwords, lengths, k, max_read_len, canonical,
-                            n_passes, pass_id)
-    if acc.kmers.dtype != torch.int32 or acc.valid.dtype != torch.bool:
-        raise TypeError("staging buffer must be int32 keys and bool valid")
-    if acc.kmers.data_ptr() % 16:
-        raise ValueError("the kernel stores key rows as 8- and 16-byte vectors: the staging "
-                         "keys must start 16-byte aligned")
-    if B == 0:
-        return acc
+    with span("extract"):
+        if dev.type != "cuda":
+            return append_plain(acc, words, vwords, lengths, k, max_read_len, canonical,
+                                n_passes, pass_id)
+        if acc.kmers.dtype != torch.int32 or acc.valid.dtype != torch.bool:
+            raise TypeError("staging buffer must be int32 keys and bool valid")
+        if acc.kmers.data_ptr() % 16:
+            raise ValueError("the kernel stores key rows as 8- and 16-byte vectors: the "
+                             "staging keys must start 16-byte aligned")
+        if B == 0:
+            return acc
 
-    lib = _kernel_library()
-    err = lib.dk_extract_kmers_append(
-        words.data_ptr(), B, Lw,
-        vwords.data_ptr() if vwords is not None else None, Lw // 2,
-        lengths.data_ptr() if vwords is None else None,
-        k, P, int(bool(canonical)), n_passes, pass_id, _chunk_words(k),
-        _lanes_per_read(Lw, k, P),
-        acc.kmers.data_ptr(), acc.valid.data_ptr(), acc.fill,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"extract_kmers kernel launch failed: CUDA error {err}")
-    extract_append.launches += 1
-    return acc._replace(fill=acc.fill + B * P)
+        lib = _kernel_library()
+        err = lib.dk_extract_kmers_append(
+            words.data_ptr(), B, Lw,
+            vwords.data_ptr() if vwords is not None else None, Lw // 2,
+            lengths.data_ptr() if vwords is None else None,
+            k, P, int(bool(canonical)), n_passes, pass_id, _chunk_words(k),
+            _lanes_per_read(Lw, k, P),
+            acc.kmers.data_ptr(), acc.valid.data_ptr(), acc.fill,
+            dev.index if dev.index is not None else torch.cuda.current_device(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"extract_kmers kernel launch failed: CUDA error {err}")
+        extract_append.launches += 1
+        return acc._replace(fill=acc.fill + B * P)
 
 
 extract_append.launches = 0

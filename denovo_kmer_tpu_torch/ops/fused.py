@@ -43,6 +43,7 @@ from denovo_kmer_tpu_torch.ops.table import (
     valid_rows,
 )
 from denovo_kmer_tpu_torch.ops.trio import Candidates
+from denovo_kmer_tpu_torch.utils.metrics import span
 
 _M32 = 0xFFFFFFFF
 _SAT = 0xFFFF
@@ -260,14 +261,15 @@ def fused_call_full(
     the result does not depend on them; an unknown variant raises KeyError.
     """
     _variant(variant)
-    cand_keys, child, momc, dadc, n_real, n_child = _call_stream(
-        acc, tab, tau_parent, min_child_count)
 
     def host32(t):
         return t.cpu().numpy().astype(np.uint32)
 
-    return (host32(cand_keys), host32(child), host32(momc), host32(dadc), int(n_real),
-            int(n_child))
+    with span("call", tab.keys.device):
+        cand_keys, child, momc, dadc, n_real, n_child = _call_stream(
+            acc, tab, tau_parent, min_child_count)
+        return (host32(cand_keys), host32(child), host32(momc), host32(dadc), int(n_real),
+                int(n_child))
 
 
 def candidates_from_host(keys: np.ndarray, child: np.ndarray, momc: np.ndarray,

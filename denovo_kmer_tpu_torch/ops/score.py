@@ -30,6 +30,7 @@ from denovo_kmer_tpu_torch.ops.table import (
 )
 from denovo_kmer_tpu_torch.ops.trio import Candidates
 from denovo_kmer_tpu_torch.utils.device import resolve_device
+from denovo_kmer_tpu_torch.utils.metrics import span
 
 _SAT = 0xFFFF
 
@@ -90,10 +91,11 @@ def _sat16(counts: torch.Tensor) -> torch.Tensor:
 def seed_score_table(mom: KmerTable, dad: KmerTable, capacity: int) -> ScoreTable:
     """Union of the parental tables as a scoring table: child counts 0, pcounts packed
     (dad's half shifted into the high 16 bits of the 32-bit pack)."""
-    return _score_aggregate(
-        [(mom.keys, valid_rows(mom.n, mom.capacity), [0, _sat16(mom.counts)]),
-         (dad.keys, valid_rows(dad.n, dad.capacity), [0, _sat16(dad.counts) << 16])],
-        capacity)
+    with span("seed", mom.keys.device):
+        return _score_aggregate(
+            [(mom.keys, valid_rows(mom.n, mom.capacity), [0, _sat16(mom.counts)]),
+             (dad.keys, valid_rows(dad.n, dad.capacity), [0, _sat16(dad.counts) << 16])],
+            capacity)
 
 
 def flush_score(
@@ -107,9 +109,10 @@ def flush_score(
     |mom ∪ dad| capacity and grow to the full table capacity on the first flush."""
     C = tab.capacity
     # overflow is sticky across flushes (see table.merge_tables)
-    out = _score_aggregate([(tab.keys, valid_rows(tab.n, C), [tab.counts, tab.pcounts]),
-                            (acc.kmers, staged_valid(acc), [1, 0])],
-                           out_capacity or C, tab.n > C)
+    with span("flush_score", tab.keys.device):
+        out = _score_aggregate([(tab.keys, valid_rows(tab.n, C), [tab.counts, tab.pcounts]),
+                                (acc.kmers, staged_valid(acc), [1, 0])],
+                               out_capacity or C, tab.n > C)
     return acc._replace(fill=0), out
 
 
@@ -139,20 +142,21 @@ def call_from_score(tab: ScoreTable, tau_parent: int, min_child_count: int) -> C
     min_child_count >= 1 (config-validated).
     """
     check_call_args(tau_parent, min_child_count)
-    counts, pcounts = u32(tab.counts), u32(tab.pcounts)
-    momc = pcounts & _SAT
-    dadc = pcounts >> 16
-    flags = (
-        valid_rows(tab.n, tab.capacity)
-        & (counts >= min_child_count)
-        & (momc <= tau_parent)
-        & (dadc <= tau_parent)
-    )
-    order = torch.argsort((~flags).to(torch.int8), stable=True)
-    return Candidates(
-        keys=u32(tab.keys[order]),
-        child_counts=counts[order],
-        mom_counts=momc[order],
-        dad_counts=dadc[order],
-        n=flags.sum(),
-    )
+    with span("call", tab.keys.device):
+        counts, pcounts = u32(tab.counts), u32(tab.pcounts)
+        momc = pcounts & _SAT
+        dadc = pcounts >> 16
+        flags = (
+            valid_rows(tab.n, tab.capacity)
+            & (counts >= min_child_count)
+            & (momc <= tau_parent)
+            & (dadc <= tau_parent)
+        )
+        order = torch.argsort((~flags).to(torch.int8), stable=True)
+        return Candidates(
+            keys=u32(tab.keys[order]),
+            child_counts=counts[order],
+            mom_counts=momc[order],
+            dad_counts=dadc[order],
+            n=flags.sum(),
+        )

@@ -26,6 +26,7 @@ from denovo_kmer_tpu_torch.ops.table import (
     valid_rows,
 )
 from denovo_kmer_tpu_torch.utils.device import resolve_device
+from denovo_kmer_tpu_torch.utils.metrics import span
 
 
 class KmerAccumulator(NamedTuple):
@@ -81,8 +82,10 @@ def flush(acc: KmerAccumulator, table: KmerTable) -> Tuple[KmerAccumulator, Kmer
     rows weigh 1, so flush is a single aggregate (``_aggregate_parts``, which never
     concatenates the rows themselves)."""
     C = table.capacity
-    keys, cols, n = _aggregate_parts([(table.keys, valid_rows(table.n, C), [table.counts]),
-                                      (acc.kmers, staged_valid(acc), [1])], C)
-    # overflow is sticky across flushes: a past drop must surface at the final host check
-    new_table = KmerTable(keys=keys, counts=cols[0], n=_sticky_overflow_n(n, C, table.n > C))
+    with span("flush", table.keys.device):
+        keys, cols, n = _aggregate_parts([(table.keys, valid_rows(table.n, C), [table.counts]),
+                                          (acc.kmers, staged_valid(acc), [1])], C)
+        # overflow is sticky across flushes: a past drop must surface at the final host check
+        new_table = KmerTable(keys=keys, counts=cols[0],
+                              n=_sticky_overflow_n(n, C, table.n > C))
     return acc._replace(fill=0), new_table

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from denovo_kmer_tpu_torch.utils.device import resolve_device
+from denovo_kmer_tpu_torch.utils.metrics import span, tally
 
 PAD = 0xFFFFFFFF
 _PAD_BITS = -1  # PAD as an int32 bit pattern
@@ -197,7 +198,9 @@ def _sorted_groups(parts):
     ``_part_sort_keys``): → (sorted sort keys, the permutation, the sorted row where each
     group of equal keys starts, ascending). Invalid rows carry the padding key, so they
     sort last. One host sync (the group count). Memory: the (N,) int64 sort key (two for
-    W > 2), the sort's output, permutation and scratch; nothing of width W."""
+    W > 2), the sort's output, permutation and scratch; nothing of width W. The running
+    call's tally ``rows_sorted`` counts the N rows; its span ``table.sort`` holds the
+    sort(s)."""
     N = sum(_rows_shape(rows)[0] for rows, _v, _w in parts)
     keys = None
     at = 0
@@ -211,24 +214,27 @@ def _sorted_groups(parts):
             key[at:at + n] = pk
         del part
         at += n
-    if len(keys) == 1:
-        s_key, perm = torch.sort(keys.pop(), stable=True)
-        s_keys = [s_key]
-    else:
-        # two keys (W = 3, 4): ``lex_argsort``'s two stable sorts, each key dropped once it
-        # is used — sort the low key, carry the high key into that order, stable-sort it —
-        # so at most five (N,) int64 columns live beside one sort's scratch
-        hi, lo = keys
-        del keys
-        s_lo, perm = torch.sort(lo, stable=True)
-        del lo
-        hi = hi[perm]
-        s_hi, order = torch.sort(hi, stable=True)
-        del hi
-        perm = perm[order]
-        s_lo = s_lo[order]
-        del order
-        s_keys = [s_hi, s_lo]
+    tally("rows_sorted", N)
+    with span("table.sort", keys[0].device):
+        if len(keys) == 1:
+            s_key, perm = torch.sort(keys.pop(), stable=True)
+            s_keys = [s_key]
+        else:
+            # two keys (W = 3, 4): ``lex_argsort``'s two stable sorts, each key dropped once
+            # it is used — sort the low key, carry the high key into that order,
+            # stable-sort it — so at most five (N,) int64 columns live beside one sort's
+            # scratch
+            hi, lo = keys
+            del keys
+            s_lo, perm = torch.sort(lo, stable=True)
+            del lo
+            hi = hi[perm]
+            s_hi, order = torch.sort(hi, stable=True)
+            del hi
+            perm = perm[order]
+            s_lo = s_lo[order]
+            del order
+            s_keys = [s_hi, s_lo]
     starts = torch.nonzero(group_heads(s_keys)).squeeze(1)
     return s_keys, perm, starts
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import time
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -254,31 +255,38 @@ def _fold_stream(items: Iterable, lanes: Sequence[FoldLane], m: Metrics,
     buffer (flushes follow staged windows, since a batch stages width-proportional rows).
     ``after_flush(state)`` runs after each flush inside the stream, before the next batch is
     extracted. Lanes are updated in place. ``reads_ingested`` and ``batches`` count once a
-    batch, ``kmers_extracted`` and ``windows_staged`` once a lane."""
-    for lane in lanes:
-        lane.fill = 0
-    for w, packed in items:
-        m.count("reads_ingested", packed.n_reads)
-        m.count("batches", 1)
+    batch, ``kmers_extracted`` and ``windows_staged`` once a lane. The loop is the ``fold``
+    span of ``m``; the ingest steps and flushes add their seconds to ``timer`` without a span
+    of their own (their ``extract`` and table-step spans sit directly in ``fold``)."""
+
+    def timed(step, *args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        m.add_seconds(timer, time.perf_counter() - t0)
+        return out
+
+    with m.span("fold"):
         for lane in lanes:
-            cfg = lane.cfg
-            per_read = max(w - cfg.k + 1, 0)
-            win = cfg.batch_reads * per_read
-            if lane.fill + win > _staging_slots(cfg):
-                with m.timer(timer):
-                    lane.acc, lane.state = lane.flush_fn(lane.acc, lane.state)
-                lane.fill = 0
-                if after_flush is not None:
-                    after_flush(lane.state)
-            with m.timer(timer):
-                lane.acc = lane.steps[w](lane.acc, packed)
-            lane.fill += win
-            m.count("kmers_extracted", packed.n_reads * per_read)
-            m.count("windows_staged", win)
-    for lane in lanes:
-        if lane.fill and lane.final_flush:
-            with m.timer(timer):
-                lane.acc, lane.state = lane.flush_fn(lane.acc, lane.state)
+            lane.fill = 0
+        for w, packed in items:
+            m.count("reads_ingested", packed.n_reads)
+            m.count("batches", 1)
+            for lane in lanes:
+                cfg = lane.cfg
+                per_read = max(w - cfg.k + 1, 0)
+                win = cfg.batch_reads * per_read
+                if lane.fill + win > _staging_slots(cfg):
+                    lane.acc, lane.state = timed(lane.flush_fn, lane.acc, lane.state)
+                    lane.fill = 0
+                    if after_flush is not None:
+                        after_flush(lane.state)
+                lane.acc = timed(lane.steps[w], lane.acc, packed)
+                lane.fill += win
+                m.count("kmers_extracted", packed.n_reads * per_read)
+                m.count("windows_staged", win)
+        for lane in lanes:
+            if lane.fill and lane.final_flush:
+                lane.acc, lane.state = timed(lane.flush_fn, lane.acc, lane.state)
 
 
 def _placed_items(batches: Iterable, cfg: EngineConfig, device: torch.device,
@@ -767,16 +775,17 @@ def _call_compacted(score_tab: ScoreTable, cfg: EngineConfig,
 
 def _trio_result(parts, k: int, m: Metrics, tables_n: Dict[str, int]) -> TrioResult:
     """The TrioResult of host uint32 (keys, child, mom, dad) candidate columns in report
-    order."""
+    order; the candidate tuples and the TSV are the ``report`` span of ``m``."""
     keys, cc, mc, dc = parts
     n = keys.shape[0]
-    cand_tuples = [
-        (words_to_kmer_value(keys[i]), int(cc[i]), int(mc[i]), int(dc[i]))
-        for i in range(n)
-    ]
+    with m.span("report"):
+        cand_tuples = [
+            (words_to_kmer_value(keys[i]), int(cc[i]), int(mc[i]), int(dc[i]))
+            for i in range(n)
+        ]
+        report = format_report_np(keys, cc, mc, dc, k)
     m.count("candidates", n)
-    return TrioResult(candidates=cand_tuples, report=format_report_np(keys, cc, mc, dc, k),
-                      metrics=m, tables_n=tables_n)
+    return TrioResult(candidates=cand_tuples, report=report, metrics=m, tables_n=tables_n)
 
 
 def _candidate_parts(cands: Candidates):
