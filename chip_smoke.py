@@ -41,7 +41,13 @@ each printed as one JSON line:
               small range (ties) and >= 2^31, then at benchmarks/micro_pallas_sort.py's
               shape (2^22 x 128, 2048-row blocks): keys and payloads bit-exact, beside
               its torch.sort yardstick, a copy floor, and its registers, spilled bytes
-              and resident CTAs an SM at every height from 2,048 up. Operations bounds
+              and resident CTAs an SM at every height from 2,048 up; the table merge
+              (csrc/table_merge.cu) at W = 1..4 with one and two weight columns, at 1,000
+              and 2^22 rows a side: overlapping sides, each side empty, a union above the
+              output's capacity, an n above its side's capacity, the all-ones key last on
+              both sides with weights wrapping to 0 (stripped) or not: keys, weights and n
+              bit-exact; then at a flush of the call cell (a 2^28-row table of 120M keys,
+              80M window keys, 40M shared) beside one torch.sort of the 200M keys. Operations bounds
               divide by the card's integer rate (64 a clock an SM x SMs x the maximum SM
               clock nvidia-smi reads, printed on the start line).
 3. parity   — on small synthetic trios, on the card and on the CPU: run_trio at k=31 (the
@@ -253,7 +259,7 @@ if __name__ != "__mp_main__":  # a spawn worker of the host's pools runs numpy a
     import torch               # phase-10 rank imports torch itself (_multihost_worker)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ["extract_kmers", "radix_partition", "block_sort"]
+KERNELS = ["extract_kmers", "radix_partition", "block_sort", "table_merge"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # 32-bit integer add, compare and min/max results a clock an SM at compute capability 9.0
 # (CUDA C++ Programming Guide, throughput of native arithmetic instructions)
@@ -756,6 +762,162 @@ def phase_block_sort():
            "bound_by": bound_by, "bytes": nbytes, "ops": ops, "edge_cases": edges,
            "edge_max_abs_err": edge_err}
     del keys, pays, out_k, out_p
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+#: rows a side of the merge kernel's edge cases; the call cell's shape for its timing:
+#: a table of 2^28 rows holding about 120M k-mers and a window reduced to about 80M unique
+#: k-mers, half of them already in the table
+TABLE_MERGE_EDGE_ROWS = (1000, 1 << 22)
+TABLE_MERGE_SHAPE = {"capacity": 1 << 28, "table_n": 120_000_000, "window_n": 80_000_000,
+                     "shared": 40_000_000}
+
+
+def merge_words(vals, W):
+    """(n, W) int32 key words of 24-bit ``vals`` in the values' order: the bits cut into W
+    chunks, most significant first, each word's bit 31 set with its chunk's top bit (words
+    at or above 2^31 occur and order unsigned)."""
+    size = 24 // W
+    words = []
+    for w in range(W):
+        chunk = (vals >> (size * (W - 1 - w))) & ((1 << size) - 1)
+        words.append(chunk | ((chunk >> (size - 1)) << 31))
+    return (torch.stack(words, 1) & 0xFFFFFFFF).to(torch.int32)
+
+
+def merge_side(gen, dev, cap, n, W, nc, zero_col):
+    """One side of ``merge_rows``: about ``n`` sorted unique keys of 24-bit values at
+    random (so two sides overlap), padded to ``cap`` rows, with ``nc`` weight columns of
+    random bits, the first a column of zeros (None) with ``zero_col``."""
+    vals = torch.unique(torch.randint(0, 1 << 24, (n,), generator=gen, device=dev))[:cap]
+    m = vals.shape[0]
+    keys = torch.full((cap, W), -1, dtype=torch.int32, device=dev)
+    keys[:m] = merge_words(vals, W)
+    cols = [None] if zero_col else []
+    while len(cols) < nc:
+        col = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        col[:m] = torch.randint(-2**31, 2**31, (m,), generator=gen, device=dev)
+        cols.append(col)
+    return keys, torch.tensor(m, device=dev), cols
+
+
+def table_merge_cases(dev, W, nc, rows):
+    """[(name, merge_rows arguments)] at about ``rows`` rows a side: overlapping sides,
+    each side empty, a union above the output's capacity, a side whose ``n`` is above its
+    capacity (an overflowed table: every row real), and the all-ones key last on both
+    sides, its weights summing to 0 (the row is stripped) or not."""
+    gen = torch.Generator(device=dev).manual_seed(10 * W + nc)
+    ka, na, ca = merge_side(gen, dev, rows, rows // 2, W, nc, False)
+    kb, nb, cb = merge_side(gen, dev, rows // 2 + 3, rows // 3, W, nc, nc == 2)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    m = int(na)
+    full = (ka[:m].clone(), torch.tensor(m + 5, device=dev),
+            [None if c is None else c[:m].clone() for c in ca])
+    cases = [("overlap", (ka, na, ca, kb, nb, cb, 2 * rows)),
+             ("empty_b", (ka, na, ca, kb, zero, cb, rows)),
+             ("empty_a", (ka, zero, ca, kb, nb, cb, rows)),
+             ("both_empty", (ka, zero, ca, kb, zero, cb, 64)),
+             ("above_capacity", (ka, na, ca, kb, nb, cb, m // 2 + 1)),
+             ("n_above_cap", (*full, kb, nb, cb, rows))]
+    for name, wa, wb in (("all_ones_wraps_to_0", 7, -7), ("all_ones_kept", 5, 1)):
+        ka2, kb2 = ka.clone(), kb.clone()
+        ka2[m - 1] = -1
+        kb2[int(nb) - 1] = -1
+        ca2 = [None if c is None else c.clone() for c in ca]
+        cb2 = [None if c is None else c.clone() for c in cb]
+        for c2a, c2b in zip(ca2, cb2):
+            if c2b is None:
+                c2a[m - 1] = 0 if wa + wb == 0 else wa
+            else:
+                c2a[m - 1], c2b[int(nb) - 1] = wa, wb  # 7 + (2^32 - 7) wraps to 0
+        cases.append((name, (ka2, na, ca2, kb2, nb, cb2, rows)))
+    return cases
+
+
+def compare_table_merge(run, args, what):
+    """``run(*args)`` against ``merge_rows_plain(*args)``: keys, weights, n and the rows
+    read, bit for bit."""
+    from denovo_kmer_tpu_torch.ops.table_merge import merge_rows_plain
+
+    got = run(*args)
+    want = merge_rows_plain(*args)
+    same = (torch.equal(got[0], want[0]) and len(got[1]) == len(want[1])
+            and all(torch.equal(g, w) for g, w in zip(got[1], want[1]))
+            and int(got[2]) == int(want[2]) and int(got[3]) == int(want[3]))
+    if not same:
+        raise AssertionError(f"table merge differs from its plain version: {what}")
+
+
+def table_merge_edges(dev, runs, rows=TABLE_MERGE_EDGE_ROWS):
+    """Each of ``runs`` (callables with ``merge_rows``' signature) against the plain
+    version at W = 1..4, one and two weight columns and each of ``table_merge_cases`` at
+    every size of ``rows``. Returns the number of comparisons."""
+    n = 0
+    for W in (1, 2, 3, 4):
+        for nc in (1, 2):
+            for r in rows:
+                for name, args in table_merge_cases(dev, W, nc, r):
+                    for run in runs:
+                        compare_table_merge(run, args, f"W={W} cols={nc} rows={r} {name}")
+                        n += 1
+    return n
+
+
+def table_merge_shape(dev, shape=TABLE_MERGE_SHAPE):
+    """The merge at a flush of the call cell (W = 2, one weight column): a table of
+    ``capacity`` rows holding ``table_n`` keys and a window of ``window_n`` unique keys,
+    ``shared`` of them in the table; 64-bit random keys."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    C, na, nb, shared = (shape[k] for k in ("capacity", "table_n", "window_n", "shared"))
+    vals = torch.unique(torch.randint(0, 1 << 62, (na + nb - shared + (1 << 20),),
+                                      generator=gen, device=dev))[:na + nb - shared]
+    vals = vals[torch.randperm(vals.shape[0], generator=gen, device=dev)]
+    a_vals = vals[:na].sort().values
+    b_vals = torch.cat([vals[:shared], vals[na:]]).sort().values
+    del vals
+
+    def side(v, cap):
+        keys = torch.full((cap, 2), -1, dtype=torch.int32, device=dev)
+        keys[:v.shape[0], 0] = ((v >> 32) & 0xFFFFFFFF).to(torch.int32)
+        keys[:v.shape[0], 1] = (v & 0xFFFFFFFF).to(torch.int32)
+        col = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        col[:v.shape[0]] = torch.randint(1, 1000, (v.shape[0],), generator=gen, device=dev,
+                                         dtype=torch.int32)
+        return keys, torch.tensor(v.shape[0], device=dev), [col]
+
+    ka, n_a, ca = side(a_vals, C)
+    kb, n_b, cb = side(b_vals, nb)
+    return (ka, n_a, ca, kb, n_b, cb, C), (a_vals, b_vals)
+
+
+def phase_table_merge():
+    """The table-merge kernel against its plain version, bit for bit, at the edge cases of
+    ``table_merge_edges``, then at a flush of the call cell (``table_merge_shape``), where
+    kernel, plain version and the torch.sort yardstick (one sort of the two sides' 64-bit
+    keys concatenated) are timed beside the bound: the valid rows of both sides read once
+    and the output's valid rows written once, 12 B a row."""
+    from denovo_kmer_tpu_torch.ops.table_merge import merge_kernel, merge_rows_plain
+
+    dev = torch.device("cuda")
+    edges = table_merge_edges(dev, [merge_kernel])
+    args, (a_vals, b_vals) = table_merge_shape(dev)
+    compare_table_merge(merge_kernel, args, "the call cell's shape")
+    ms = cuda_ms(lambda: merge_kernel(*args), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: merge_rows_plain(*args), reps=2, warmup=1)
+    both = torch.cat([a_vals, b_vals])
+    library_ms = cuda_ms(lambda: torch.sort(both), reps=5, warmup=1)
+    n_out = int(merge_kernel(*args)[2])
+    merge_kernel.launches = 0  # the comparisons above do not count
+    rows_in = a_vals.shape[0] + b_vals.shape[0]
+    nbytes = (rows_in + n_out) * 12
+    bound_ms, bound_by = bound(nbytes, 0)
+    out = {"phase": "kernels", "kernel": "table_merge", "shape": TABLE_MERGE_SHAPE,
+           "n_out": n_out, "edge_cases": edges, "max_abs_err": 0, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes}
+    del args, a_vals, b_vals, both
     torch.cuda.empty_cache()
     emit(out)
     return out
@@ -1300,9 +1462,10 @@ def _counters():
     from denovo_kmer_tpu_torch.ops.block_sort import block_sort
     from denovo_kmer_tpu_torch.ops.extract import extract_append
     from denovo_kmer_tpu_torch.ops.partition import partition_kernel
+    from denovo_kmer_tpu_torch.ops.table_merge import merge_kernel
 
     return {"extract_kmers": extract_append, "radix_partition": partition_kernel,
-            "block_sort": block_sort}
+            "block_sort": block_sort, "table_merge": merge_kernel}
 
 
 def reset_launches():
@@ -2754,8 +2917,9 @@ def phase_multihost(work, main):
                                  "numpy reference's")
         for r in range(MH_RANKS):
             got = measured[r][name]["launches"]
-            if got != {"extract_kmers": want_launches[name], "radix_partition": 0,
-                       "block_sort": 0}:
+            if {**got, "table_merge": 0} != {"extract_kmers": want_launches[name],
+                                              "radix_partition": 0, "block_sort": 0,
+                                              "table_merge": 0}:
                 raise AssertionError(f"multihost {name} rank {r}: launches {got}, want "
                                      f"{want_launches[name]} extractions")
     for r in range(MH_RANKS):
@@ -4245,6 +4409,7 @@ def main() -> int:
     cases, worst, shard_case = phase_kernels(rng)
     part_cases = phase_partition()
     sort_case = phase_block_sort()
+    merge_case = phase_table_merge()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
     early = None
     try:
@@ -4349,7 +4514,18 @@ def main() -> int:
         "library_ms": sort_case["library_ms"], "copy_floor_ms": sort_case["copy_floor_ms"],
         "resources": sort_case["resources"],
         "launches_by_path": {name: v["block_sort"] for name, v in by_path.items()},
-        "shape": "keys, pays (2^22, 128) u32, 2048-row blocks (a probe: no path calls it)"}],
+        "shape": "keys, pays (2^22, 128) u32, 2048-row blocks (a probe: no path calls it)"}, {
+        "name": "table_merge", "route": "cuda",
+        "source": "denovo_kmer_tpu_torch/csrc/table_merge.cu",
+        "replaces": None,
+        "launches": sweep_scale["launches"]["table_merge"],
+        "max_abs_err": merge_case["max_abs_err"],
+        "ms": merge_case["ms"], "plain_ms": merge_case["plain_ms"],
+        "bound_ms": merge_case["bound_ms"], "bound_by": merge_case["bound_by"],
+        "library_ms": merge_case["library_ms"],
+        "launches_by_path": {name: v["table_merge"] for name, v in by_path.items()},
+        "shape": "a flush of the call cell: W = 2, a 2^28-row table holding 120M keys and "
+                 "80M window keys, 40M shared; library: torch.sort of the 200M keys"}],
         "unported": []})
     emit({"phase": "end", "seconds": time.perf_counter() - t_start})
     print(power_line(), flush=True)

@@ -5,6 +5,8 @@
                 ``csrc/extract_kmers.cu`` on the card; ``extract_fast`` is its standalone
                 entry)
 - ``table``     device: sorted k-mer table — build / merge / binary-search probe
+- ``table_merge`` device: merge of two sorted unique row sets into a table (the CUDA kernel
+                ``csrc/table_merge.cu`` on the card), the table steps' fold
 - ``trio``      device: de novo candidate rule + compaction
 """
 

@@ -18,11 +18,13 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, staged_valid
+from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator
 from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
     _aggregate_parts,
     _host_bits,
+    _merge_sorted,
+    _staged_groups,
     _sticky_overflow_n,
     empty_table,
     u32,
@@ -90,12 +92,13 @@ def _sat16(counts: torch.Tensor) -> torch.Tensor:
 
 def seed_score_table(mom: KmerTable, dad: KmerTable, capacity: int) -> ScoreTable:
     """Union of the parental tables as a scoring table: child counts 0, pcounts packed
-    (dad's half shifted into the high 16 bits of the 32-bit pack)."""
+    (dad's half shifted into the high 16 bits of the 32-bit pack). Both tables are sorted
+    and unique, so the union is one merge (``_merge_sorted``) and nothing is sorted."""
     with span("seed", mom.keys.device):
-        return _score_aggregate(
-            [(mom.keys, valid_rows(mom.n, mom.capacity), [0, _sat16(mom.counts)]),
-             (dad.keys, valid_rows(dad.n, dad.capacity), [0, _sat16(dad.counts) << 16])],
-            capacity)
+        keys, cols, n = _merge_sorted(mom.keys, mom.n, [None, _sat16(mom.counts)],
+                                      dad.keys, dad.n, [None, _sat16(dad.counts) << 16],
+                                      capacity)
+        return ScoreTable(keys=keys, counts=cols[0], pcounts=cols[1], n=n)
 
 
 def flush_score(
@@ -108,11 +111,14 @@ def flush_score(
     ``out_capacity`` (default: same as input) lets a pipeline seed at a tight
     |mom ∪ dad| capacity and grow to the full table capacity on the first flush."""
     C = tab.capacity
-    # overflow is sticky across flushes (see table.merge_tables)
+    out_c = out_capacity or C
     with span("flush_score", tab.keys.device):
-        out = _score_aggregate([(tab.keys, valid_rows(tab.n, C), [tab.counts, tab.pcounts]),
-                                (acc.kmers, staged_valid(acc), [1, 0])],
-                               out_capacity or C, tab.n > C)
+        w_keys, w_counts, w_n = _staged_groups(acc.kmers[:acc.fill], acc.valid[:acc.fill])
+        keys, cols, n = _merge_sorted(tab.keys, tab.n, [tab.counts, tab.pcounts],
+                                      w_keys, w_n, [w_counts, None], out_c)
+        # overflow is sticky across flushes (see table.merge_tables)
+        out = ScoreTable(keys=keys, counts=cols[0], pcounts=cols[1],
+                         n=_sticky_overflow_n(n, out_c, tab.n > C))
     return acc._replace(fill=0), out
 
 

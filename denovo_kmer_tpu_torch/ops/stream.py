@@ -2,8 +2,9 @@
 
 Port of ``denovo_kmer_tpu/ops/stream.py``. Raw extracted k-mers are appended to a device
 staging buffer (no sort, no sync), and only every ``accum_batches`` batches does one flush
-aggregate+merge run. Everything stays exact: the flush aggregates with the same
-aggregate as the direct path (``ops/table._aggregate_parts``).
+aggregate+merge run. Everything stays exact: the flush gives what the direct path's
+aggregate (``ops/table._aggregate_parts``) gives over the table's and the staged rows, but
+sorts only the staged rows and merges them into the sorted table.
 
 The staging buffer is written IN PLACE (the JAX package donates it to the jitted step
 instead): ``append`` and the extraction kernel (``ops.extract.extract_append``) fill rows
@@ -21,9 +22,9 @@ import torch
 
 from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
-    _aggregate_parts,
+    _merge_sorted,
+    _staged_groups,
     _sticky_overflow_n,
-    valid_rows,
 )
 from denovo_kmer_tpu_torch.utils.device import resolve_device
 from denovo_kmer_tpu_torch.utils.metrics import span
@@ -78,13 +79,15 @@ def staged_valid(acc: KmerAccumulator) -> torch.Tensor:
 def flush(acc: KmerAccumulator, table: KmerTable) -> Tuple[KmerAccumulator, KmerTable]:
     """Aggregate the staging buffer and merge it into the table; reset the buffer.
 
-    One sort over (S + C) rows: table entries join the sort as pre-weighted rows and staged
-    rows weigh 1, so flush is a single aggregate (``_aggregate_parts``, which never
-    concatenates the rows themselves)."""
+    The table is sorted and unique, so only the staged rows ``[0, fill)`` are sorted and
+    reduced to unique keys with their run lengths (``_staged_groups``); one linear merge
+    then folds them into the table, counts added (``_merge_sorted``). The result equals
+    ``_aggregate_parts`` over the table's rows and the staged rows."""
     C = table.capacity
     with span("flush", table.keys.device):
-        keys, cols, n = _aggregate_parts([(table.keys, valid_rows(table.n, C), [table.counts]),
-                                          (acc.kmers, staged_valid(acc), [1])], C)
+        w_keys, w_counts, w_n = _staged_groups(acc.kmers[:acc.fill], acc.valid[:acc.fill])
+        keys, cols, n = _merge_sorted(table.keys, table.n, [table.counts],
+                                      w_keys, w_n, [w_counts], C)
         # overflow is sticky across flushes: a past drop must surface at the final host check
         new_table = KmerTable(keys=keys, counts=cols[0],
                               n=_sticky_overflow_n(n, C, table.n > C))

@@ -25,6 +25,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from denovo_kmer_tpu_torch.ops.table_merge import merge_rows
 from denovo_kmer_tpu_torch.utils.device import resolve_device
 from denovo_kmer_tpu_torch.utils.metrics import span, tally
 
@@ -216,27 +217,83 @@ def _sorted_groups(parts):
         at += n
     tally("rows_sorted", N)
     with span("table.sort", keys[0].device):
-        if len(keys) == 1:
-            s_key, perm = torch.sort(keys.pop(), stable=True)
-            s_keys = [s_key]
-        else:
-            # two keys (W = 3, 4): ``lex_argsort``'s two stable sorts, each key dropped once
-            # it is used — sort the low key, carry the high key into that order,
-            # stable-sort it — so at most five (N,) int64 columns live beside one sort's
-            # scratch
-            hi, lo = keys
-            del keys
-            s_lo, perm = torch.sort(lo, stable=True)
-            del lo
-            hi = hi[perm]
-            s_hi, order = torch.sort(hi, stable=True)
-            del hi
-            perm = perm[order]
-            s_lo = s_lo[order]
-            del order
-            s_keys = [s_hi, s_lo]
+        s_keys, perm = _lex_sort(keys)
     starts = torch.nonzero(group_heads(s_keys)).squeeze(1)
     return s_keys, perm, starts
+
+
+def _lex_sort(keys: List[torch.Tensor], with_perm: bool = True):
+    """Sort by ``keys`` (one or two (N,) int64 sort keys, most significant first; the list
+    is emptied) → (sorted keys, permutation, or None without ``with_perm`` where two keys
+    are sorted). Two keys (W = 3, 4) take ``lex_argsort``'s two stable sorts, each key
+    dropped once it is used — sort the low key, carry the high key into that order,
+    stable-sort it — so at most five (N,) int64 columns live beside one sort's scratch."""
+    if len(keys) == 1:
+        s_key, perm = torch.sort(keys.pop(), stable=True)
+        return [s_key], perm
+    hi, lo = keys
+    keys.clear()
+    s_lo, perm = torch.sort(lo, stable=True)
+    del lo
+    hi = hi[perm]
+    s_hi, order = torch.sort(hi, stable=True)
+    del hi
+    perm = perm[order] if with_perm else None
+    s_lo = s_lo[order]
+    return [s_hi, s_lo], perm
+
+
+def _staged_groups(rows: torch.Tensor, valid: torch.Tensor):
+    """Sort one block of staged key rows ((N, W) int32 bits, see ``_part_sort_keys``) and
+    reduce it to its unique keys, each with its run length: every valid row weighs 1, and
+    invalid rows take the padding key and weigh 0, so they join a real all-ones k-mer's
+    group or form one weight-0 group that is dropped, as in ``_aggregate_parts``. → (keys
+    (U, W) int32, counts (U,) int32, n: a 0-dim int64 tensor, U less the dropped group).
+
+    One W <= 2 key sorts without a permutation (``torch.unique``, which also takes the run
+    lengths); two keys (W = 3, 4) take ``_lex_sort``'s two stable sorts. One host sync (U).
+    The running call's tally ``rows_sorted`` counts the N rows; its span ``table.sort``
+    holds the sort(s)."""
+    N, W = rows.shape
+    dev = rows.device
+    if N == 0:
+        return (torch.empty((0, W), dtype=torch.int32, device=dev),
+                torch.empty((0,), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    keys = _part_sort_keys(rows, valid)
+    tally("rows_sorted", N)
+    counts = None
+    with span("table.sort", dev):
+        if len(keys) == 1:
+            s_key, counts = torch.unique(keys.pop(), sorted=True, return_counts=True)
+            s_keys = [s_key]
+        else:
+            s_keys, _ = _lex_sort(keys, with_perm=False)
+    if counts is None:
+        starts = torch.nonzero(group_heads(s_keys)).squeeze(1)
+        counts = torch.diff(starts, append=starts.new_full((1,), N))
+        s_keys = [k[starts] for k in s_keys]
+        del starts
+    U = counts.shape[0]
+    is_pad = torch.ones((), dtype=torch.bool, device=dev)
+    for k, pad in zip(s_keys, _pad_sort_keys(W)):
+        is_pad &= k[-1] == pad
+    counts[-1:] -= torch.where(is_pad, N - valid.sum(), 0)
+    n = U - (is_pad & (counts[-1] == 0)).to(torch.int64)
+    out = torch.empty((U, W), dtype=torch.int32, device=dev)
+    for w, col in enumerate(_unpack_sort_keys(s_keys, W)):
+        out[:, w] = col
+    return out, counts.to(torch.int32), n
+
+
+def _merge_sorted(a_keys, a_n, a_cols, b_keys, b_n, b_cols, capacity: int):
+    """``ops/table_merge.merge_rows`` of two sorted unique row sets → (keys, weight columns,
+    n), inside the running call's span ``table.merge``; its tally ``rows_merged`` adds the
+    valid rows the merge reads (a 0-dim tensor on the device: no host sync)."""
+    with span("table.merge", a_keys.device):
+        keys, cols, n, rows = merge_rows(a_keys, a_n, a_cols, b_keys, b_n, b_cols, capacity)
+    tally("rows_merged", rows)
+    return keys, cols, n
 
 
 def _group_sums(parts, col: int, perm, starts, take: int, N: int):

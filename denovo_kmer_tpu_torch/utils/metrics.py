@@ -15,7 +15,9 @@ records, it:
 - with a CUDA ``device``, records a CUDA event pair on the device's current stream, read with
   one synchronize when first asked for; on the CPU the device seconds are the host's.
 
-Tallies (``Metrics.tallies``, e.g. ``rows_sorted``) count whether or not a profiler runs.
+Tallies (``Metrics.tallies``, e.g. ``rows_sorted``) count whether or not a profiler runs. A
+count known only on the device (``rows_merged``) is tallied as a 0-dim tensor and summed
+there, with no host sync; ``int()`` reads it.
 Neither spans nor tallies enter ``summary()`` or ``to_dict()``, which stay the JAX
 package's.
 """
@@ -111,8 +113,9 @@ def span(name: str, device: Optional[torch.device] = None):
     return _Span(_ACTIVE.get()[0], name, device)
 
 
-def tally(name: str, n: int) -> None:
-    """Add ``n`` to the running call's tally ``name`` (nothing outside a call)."""
+def tally(name: str, n) -> None:
+    """Add ``n`` (an int, or a 0-dim tensor summed on its device) to the running call's
+    tally ``name`` (nothing outside a call)."""
     m = _ACTIVE.get()[0]
     if m is not None:
         m.tallies[name] += n

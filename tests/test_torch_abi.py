@@ -13,7 +13,7 @@ import re
 
 import pytest
 
-from denovo_kmer_tpu_torch.ops import block_sort, extract, partition
+from denovo_kmer_tpu_torch.ops import block_sort, extract, partition, table_merge
 from denovo_kmer_tpu_torch.utils.cuda_build import CSRC
 
 #: extern "C" entry of each kernel source, and the module whose _ARGTYPES bind it
@@ -21,6 +21,7 @@ BINDINGS = {
     "extract_kmers": ("dk_extract_kmers_append", extract),
     "radix_partition": ("dk_radix_partition", partition),
     "block_sort": ("dk_block_sort", block_sort),
+    "table_merge": ("dk_table_merge", table_merge),
 }
 
 _KINDS = {"pointer": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}

@@ -13,7 +13,7 @@ import torch
 from denovo_kmer_tpu_torch.cohort import run_trio_multi_k
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.io.synth import TrioSpec, make_trio, write_trio_bams
-from denovo_kmer_tpu_torch.ops import fused, table
+from denovo_kmer_tpu_torch.ops import fused, score, stream, table
 from denovo_kmer_tpu_torch.pipeline import run_trio
 from denovo_kmer_tpu_torch.utils import metrics as metrics_mod
 from denovo_kmer_tpu_torch.utils.metrics import Metrics, span, tally
@@ -25,7 +25,8 @@ SPEC = dict(genome_len=3000, read_len=60, coverage=8.0, seed=3,
 #: a small staging window, so that every sample flushes inside its stream
 CFG = dict(k=21, max_read_len=64, batch_reads=64, table_capacity=1 << 14, accum_batches=2)
 KS = (15, 21, 41)
-#: the spans the table steps open; each sorts once
+#: the spans the table steps open: each flush sorts its staged rows once and merges them
+#: into its table, the seed merges two tables, the fused call sorts once
 TABLE_STEPS = ("flush", "flush_score", "seed", "call")
 
 
@@ -59,7 +60,8 @@ def _profiled(fn):
 
 @pytest.fixture(scope="module", params=["run_trio", "run_trio_multi_k"])
 def traced(request, paths):
-    """(entry, results, Metrics, profiler, rows passed to _sorted_groups) of a traced run."""
+    """(entry, results, Metrics, profiler, rows passed to the sorts: ``_sorted_groups`` and
+    ``_staged_groups``) of a traced run."""
     rows = []
 
     def counted(real):
@@ -68,9 +70,17 @@ def traced(request, paths):
             return real(parts)
         return wrapped
 
+    def counted_staged(real):
+        def wrapped(kmers, valid):
+            rows.append(kmers.shape[0])
+            return real(kmers, valid)
+        return wrapped
+
     mp = pytest.MonkeyPatch()
     for mod in (table, fused):
         mp.setattr(mod, "_sorted_groups", counted(mod._sorted_groups))
+    for mod in (stream, score):
+        mp.setattr(mod, "_staged_groups", counted_staged(mod._staged_groups))
     m = Metrics()
     try:
         res, prof = _profiled(lambda: _run(request.param, paths, m))
@@ -121,7 +131,8 @@ def test_folds_hold_the_feed_wait_the_extraction_and_the_flushes(traced):
             assert _ancestors(m, r) == ["build_child"]
         elif r.name == "call":
             assert _parent(m, r) == "trio_call"
-    assert {_parent(m, r) for r in m.spans if r.name not in ("fold", "table.sort")} <= {
+    assert {_parent(m, r) for r in m.spans
+            if r.name not in ("fold", "table.sort", "table.merge")} <= {
         "fold", "build_child", "trio_call", None}
     assert {r.name for r in m.spans if _parent(m, r) == "fold"} == {
         "feed_wait", "extract", "flush", "flush_score"}
@@ -134,14 +145,22 @@ def test_folds_hold_the_feed_wait_the_extraction_and_the_flushes(traced):
 def test_every_table_step_sorts_inside_a_table_sort_span(traced):
     entry, _res, m, _prof, rows = traced
     sorts = [r for r in m.spans if r.name == "table.sort"]
-    assert all(_parent(m, r) in TABLE_STEPS for r in sorts)
-    children = collections.Counter(m.spans[r.parent].name for r in sorts)
+    merges = [r for r in m.spans if r.name == "table.merge"]
+    assert all(_parent(m, r) in TABLE_STEPS for r in sorts + merges)
     steps = collections.Counter(r.name for r in m.spans if r.name in TABLE_STEPS)
-    assert children == steps and len(sorts) == len(rows)
+    assert steps["seed"] and steps["call"] and steps["flush"] + steps["flush_score"]
+    # every step but the seed sorts once (each flush here has staged rows); every step but
+    # the fused call merges once
+    sorted_in = collections.Counter(m.spans[r.parent].name for r in sorts)
+    merged_in = collections.Counter(m.spans[r.parent].name for r in merges)
+    assert sorted_in == steps - collections.Counter(seed=steps["seed"])
+    assert merged_in == steps - collections.Counter(call=steps["call"])
+    assert len(sorts) == len(rows)
     assert m.tallies["rows_sorted"] == sum(rows) > 0
+    assert int(m.tallies["rows_merged"]) > 0
     # device spans on the CPU read the host's clock; host spans have no device seconds
     assert all(r.device_s == r.end - r.start for r in m.spans
-               if r.name in TABLE_STEPS + ("table.sort",))
+               if r.name in TABLE_STEPS + ("table.sort", "table.merge"))
     assert all(r.device_s is None for r in m.spans if r.name in ("fold", "report", "extract"))
     assert m.span_seconds("table.sort", device=True) == pytest.approx(
         m.span_seconds("table.sort"))
