@@ -19,6 +19,13 @@ concatenated bucket by bucket is one stable sort by bucket.
 Exactness: the partition counts overflow instead of dropping (``SpillOverflowError`` names
 the fix), and the pass partition is a partition of the key space, so per-pass candidates
 union to exactly the single-pass result.
+
+Spans and tallies (``utils/metrics.py``): ``spill.partition`` around a window's partition,
+``spill.store`` around ``store_append`` (its read of the window's counts waits for the
+partition, so a profile shows there how long the host blocks on each window) and
+``spill.fold`` around the folds from the store (device spans; the table steps' own spans sit
+inside it); ``rows_partitioned`` tallies the staged rows a partition reads, ``rows_spilled``
+the rows appended to a store or a host spill.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, flush, staged_vali
 from denovo_kmer_tpu_torch.ops.table import KmerTable
 from denovo_kmer_tpu_torch.parallel.router import bucketize, pass_of, route_capacity
 from denovo_kmer_tpu_torch.utils.device import resolve_device
+from denovo_kmer_tpu_torch.utils.metrics import span, tally
 
 #: rows per block of the partition kernel (one CTA each)
 SPILL_BLOCK_LANES = 32768
@@ -128,12 +136,14 @@ def partition_window(
     ``counts[p]`` within a block are undefined — consumers honor counts. On CUDA tensors
     the partition kernel runs (``partition_window_blocks``); on CPU tensors the plain
     ``router.bucketize``, keyed by ``pass_of``."""
-    if acc.kmers.device.type == "cuda":
-        disp, counts, ovf = partition_window_blocks(acc, n_passes, capacity)
-    else:
-        disp, mask, _src, ovf = bucketize(acc.kmers, staged_valid(acc), n_passes, capacity,
-                                          owner=pass_of(acc.kmers, n_passes))
-        counts = mask.sum(1).to(torch.int32)
+    tally("rows_partitioned", acc.fill)
+    with span("spill.partition", acc.kmers.device):
+        if acc.kmers.device.type == "cuda":
+            disp, counts, ovf = partition_window_blocks(acc, n_passes, capacity)
+        else:
+            disp, mask, _src, ovf = bucketize(acc.kmers, staged_valid(acc), n_passes,
+                                              capacity, owner=pass_of(acc.kmers, n_passes))
+            counts = mask.sum(1).to(torch.int32)
     return disp, counts, ovf, acc._replace(fill=0)
 
 
@@ -143,11 +153,14 @@ def store_append(store: PassStore, disp: torch.Tensor, counts) -> PassStore:
     every row so the overflow guard sees them."""
     alloc = store.rows.shape[1]
     fill = list(store.fill)
-    for p, c in enumerate(torch.as_tensor(counts).cpu().tolist()):
-        take = max(0, min(c, alloc - fill[p]))
-        if take:
-            store.rows[p, fill[p]:fill[p] + take] = disp[p, :take]
-        fill[p] += c
+    with span("spill.store", store.rows.device):
+        counts = torch.as_tensor(counts).cpu().tolist()
+        tally("rows_spilled", sum(counts))
+        for p, c in enumerate(counts):
+            take = max(0, min(c, alloc - fill[p]))
+            if take:
+                store.rows[p, fill[p]:fill[p] + take] = disp[p, :take]
+            fill[p] += c
     return PassStore(rows=store.rows, fill=tuple(fill))
 
 
@@ -180,8 +193,9 @@ def count_pass_from_store(store: PassStore, pass_id: int, table: KmerTable,
         raise ValueError(f"store rows/pass ({N}) % chunk_rows ({chunk_rows}) != 0")
     n = store.fill[pass_id]
     rows = store.rows[pass_id]
-    for start in range(0, max(n, 1), chunk_rows):
-        table = _fold_chunk(rows[start:start + chunk_rows], table, n - start)
+    with span("spill.fold", rows.device):
+        for start in range(0, max(n, 1), chunk_rows):
+            table = _fold_chunk(rows[start:start + chunk_rows], table, n - start)
     return table
 
 
@@ -198,8 +212,9 @@ def score_pass_from_store(store: PassStore, pass_id: int, stab, chunk_rows: int)
         raise ValueError(f"store rows/pass ({N}) % chunk_rows ({chunk_rows}) != 0")
     n = store.fill[pass_id]
     rows = store.rows[pass_id]
-    for start in range(0, max(n, 1), chunk_rows):
-        stab = _fold_chunk_score(rows[start:start + chunk_rows], stab, n - start)
+    with span("spill.fold", rows.device):
+        for start in range(0, max(n, 1), chunk_rows):
+            stab = _fold_chunk_score(rows[start:start + chunk_rows], stab, n - start)
     return stab
 
 
@@ -295,7 +310,9 @@ class HostSpill:
     def append_window(self, disp: torch.Tensor, counts) -> None:
         """Write one partitioned window ((P, cap, W) int32 bits + per-pass counts): only
         ``disp[p, :counts[p]]`` leaves the device."""
-        for p, c in enumerate(torch.as_tensor(counts).cpu().tolist()):
+        counts = torch.as_tensor(counts).cpu().tolist()
+        tally("rows_spilled", sum(counts))
+        for p, c in enumerate(counts):
             if c:
                 rows = disp[p, :c].cpu().numpy()
                 self._files[p].write(np.ascontiguousarray(rows).tobytes())

@@ -61,7 +61,7 @@ from denovo_kmer_tpu_torch.oracle.scalar import words_to_kmer_value
 from denovo_kmer_tpu_torch.parallel.router import pass_of
 from denovo_kmer_tpu_torch.utils.checkpoint import maybe_load_flat_table
 from denovo_kmer_tpu_torch.utils.device import resolve_device
-from denovo_kmer_tpu_torch.utils.metrics import Metrics
+from denovo_kmer_tpu_torch.utils.metrics import Metrics, span
 
 _BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -1030,8 +1030,9 @@ def run_trio_spill(
     def fold_table(sp, p):
         table = empty_table(C, cfg.words, dev)
         if isinstance(sp, HostSpill):
-            for rows, take in host_chunks(sp, p):
-                table = _fold_chunk(rows, table, take)
+            with span("spill.fold", dev):
+                for rows, take in host_chunks(sp, p):
+                    table = _fold_chunk(rows, table, take)
         else:
             table = count_pass_from_store(sp, p, table, chunk_rows)
         return table, _check_table(table, cfg)
@@ -1048,8 +1049,9 @@ def run_trio_spill(
             del mom_p, dad_p  # only the scoring table is read from here on
             sp = spills["child"]
             if isinstance(sp, HostSpill):
-                for rows, take in host_chunks(sp, p):
-                    stab = _fold_chunk_score(rows, stab, take)
+                with span("spill.fold", dev):
+                    for rows, take in host_chunks(sp, p):
+                        stab = _fold_chunk_score(rows, stab, take)
             else:
                 stab = score_pass_from_store(sp, p, stab, chunk_rows)
             _check_table(stab, cfg)
