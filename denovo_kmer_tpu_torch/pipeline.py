@@ -22,7 +22,9 @@ Entry points run on the card unless the caller asks for the CPU (``device="cpu"`
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import os
 import sys
 import time
@@ -57,13 +59,38 @@ from denovo_kmer_tpu_torch.ops.table import (
     table_to_numpy,
 )
 from denovo_kmer_tpu_torch.ops.trio import Candidates
-from denovo_kmer_tpu_torch.oracle.scalar import words_to_kmer_value
 from denovo_kmer_tpu_torch.parallel.router import pass_of
 from denovo_kmer_tpu_torch.utils.checkpoint import maybe_load_flat_table
 from denovo_kmer_tpu_torch.utils.device import resolve_device
 from denovo_kmer_tpu_torch.utils.metrics import Metrics, span
 
-_BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+def _ascii_words(strs: Iterable[str]) -> np.ndarray:
+    """Strings of four ASCII characters as the uint32 words of their bytes."""
+    return np.frombuffer("".join(strs).encode("ascii"), np.uint32)
+
+
+def _unpadded(i: int, width: int) -> str:
+    """``i`` right-aligned in ``width`` characters, NUL before its first digit."""
+    return str(i).rjust(width, "\0")
+
+
+# The report's text is built a uint32 word at a time from these tables; NUL marks a byte
+# that does not print, and is deleted at the end.
+#: a key byte's four bases, its top two bits first
+_BYTE_BASES = _ascii_words(
+    "".join("ACGT"[(b >> s) & 3] for s in (6, 4, 2, 0)) for b in range(256))
+#: a count's 4-digit groups: [0, 1e4) "0000" to "9999"; [1e4, 2e4) the same unpadded, for
+#: a group with no digit above it; 2e4 the empty group above a count under 1e4
+_DIGITS4 = _ascii_words([f"{i:04d}" for i in range(10000)]
+                        + [_unpadded(i, 4) for i in range(10000)] + ["\0" * 4])
+#: a count's tab and its digits from 1e8 up (a uint32 has at most 42 hundred millions)
+_TAB_TOP = _ascii_words(["\0\t\0\0"] + ["\0\t" + _unpadded(i, 2) for i in range(1, 43)])
+_NEWLINE = _ascii_words(["\n\0\0\0"])[0]
+_REPORT_HEADER = b"#kmer\tchild_count\tmom_count\tdad_count\n"
+#: candidate rows formatted at a time: a chunk's word matrix is at most 27 MB (W = 4)
+_REPORT_CHUNK_ROWS = 1 << 18
+
 
 class TableOverflowError(RuntimeError):
     """Unique k-mers exceeded table capacity — rerun with a larger --table-capacity."""
@@ -663,20 +690,55 @@ def build_sample_table_resumable(
     return table
 
 
+def _base_words(keys: np.ndarray, k: int) -> np.ndarray:
+    """(4W, n) uint32, a word of every row a row: the 16W bases of each row's big-endian key
+    words as ASCII, four a word, NUL for the 16W - k above the k-mer."""
+    n, W = keys.shape
+    key_bytes = np.ascontiguousarray(keys.T, ">u4").view(np.uint8).reshape(W, n, 4)
+    key_bytes = key_bytes.transpose(0, 2, 1)
+    words = _BYTE_BASES[key_bytes.reshape(4 * W, n)]
+    keep = (np.arange(16 * W) >= 16 * W - k).astype(np.uint8) * np.uint8(0xFF)
+    words &= keep.view(np.uint32)[:, None]
+    return words
+
+
+def _text(words: np.ndarray) -> bytes:
+    """The bytes of (words a line, lines) uint32 ``words``, line by line, less their NULs."""
+    return np.ascontiguousarray(words.T).tobytes().translate(None, b"\0")
+
+
 def decode_kmers_np(keys: np.ndarray, k: int) -> List[str]:
     """Vectorized multi-word k-mer decode → ACGT strings (host, for reporting)."""
-    n, W = keys.shape
-    if n == 0:
-        return []
-    # bit position (from LSB of the big-endian word vector) for base j is 2*(k-1-j)
-    out = np.empty((n, k), dtype=np.uint8)
-    for j in range(k):
-        bit = 2 * (k - 1 - j)
-        w = W - 1 - bit // 32
-        sh = bit % 32
-        code = (keys[:, w] >> np.uint32(sh)) & np.uint32(3)
-        out[:, j] = _BASE[code]
-    return [bytes(row).decode() for row in out]
+    kw = 4 * keys.shape[1]
+    words = np.empty((kw + 1, keys.shape[0]), np.uint32)
+    words[:kw] = _base_words(keys, k)
+    words[-1] = _NEWLINE
+    return _text(words).decode("ascii").splitlines()
+
+
+def _count_words(v: np.ndarray, out: np.ndarray) -> None:
+    """Write a tab and the decimal digits of the uint32 column ``v`` into the three uint32
+    rows ``out``: 12 bytes a count, NUL for the 10-digit field's leading zeros."""
+    v = v.astype(np.uint32, copy=False)
+    ten_k = np.uint32(10000)
+    hi = v // ten_k
+    top = hi // ten_k
+    np.take(_DIGITS4, v - hi * ten_k + (hi == 0) * ten_k, out=out[2])
+    np.take(_DIGITS4, hi - top * ten_k + (top == 0) * ten_k + (hi == 0) * ten_k, out=out[1])
+    np.take(_TAB_TOP, top, out=out[0])
+
+
+def _report_rows(keys: np.ndarray, counts: Sequence[np.ndarray], k: int) -> bytes:
+    """The TSV lines of candidate rows. A line is 4W + 10 uint32 words: the bases of its key
+    words, three words a count (its tab and 10-digit field) and the newline, written a word
+    of every line at a time."""
+    kw = 4 * keys.shape[1]
+    words = np.empty((kw + 10, keys.shape[0]), np.uint32)
+    words[:kw] = _base_words(keys, k)
+    for j, col in enumerate(counts):
+        _count_words(col, words[kw + 3 * j:kw + 3 * j + 3])
+    words[-1] = _NEWLINE
+    return _text(words)
 
 
 def format_report_np(
@@ -686,12 +748,40 @@ def format_report_np(
     dad_counts: np.ndarray,
     k: int,
 ) -> str:
-    """Byte-exact TSV report (SPEC_SEMANTICS §7), identical to oracle.format_report."""
-    lines = ["#kmer\tchild_count\tmom_count\tdad_count"]
-    strs = decode_kmers_np(keys, k)
-    for i, s in enumerate(strs):
-        lines.append(f"{s}\t{child_counts[i]}\t{mom_counts[i]}\t{dad_counts[i]}")
-    return "\n".join(lines) + "\n"
+    """Byte-exact TSV report (SPEC_SEMANTICS §7), identical to oracle.format_report; the
+    counts are uint32. Formatted column-wise, ``_REPORT_CHUNK_ROWS`` rows at a time."""
+    cols = (keys, child_counts, mom_counts, dad_counts)
+    parts = [_REPORT_HEADER]
+    for i in range(0, keys.shape[0], _REPORT_CHUNK_ROWS):
+        chunk = [c[i:i + _REPORT_CHUNK_ROWS] for c in cols]
+        parts.append(_report_rows(chunk[0], chunk[1:], k))
+    return b"".join(parts).decode("ascii")
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector off for the body: a list of tuples of ints, which form no
+    cycle, would otherwise run a young collection every few hundred tuples it builds."""
+    if not gc.isenabled():
+        yield
+        return
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
+def _key_values(keys: np.ndarray) -> List[int]:
+    """Each row's big-endian uint32 words as one Python int (``words_to_kmer_value``): two
+    words a uint64 column, and one Python join of the high and low columns where W > 2."""
+    w = keys.astype(np.uint32, copy=False).astype(np.uint64)
+    s32 = np.uint64(32)
+    lo = w[:, -1] if w.shape[1] == 1 else (w[:, -2] << s32) | w[:, -1]
+    if w.shape[1] <= 2:
+        return lo.tolist()
+    hi = w[:, 0] if w.shape[1] == 3 else (w[:, 0] << s32) | w[:, 1]
+    return [(h << 64) | low for h, low in zip(hi.tolist(), lo.tolist())]
 
 
 def _parent_tables(mom_path: str, dad_path: str, cfg: EngineConfig, m: Metrics,
@@ -779,10 +869,8 @@ def _trio_result(parts, k: int, m: Metrics, tables_n: Dict[str, int]) -> TrioRes
     keys, cc, mc, dc = parts
     n = keys.shape[0]
     with m.span("report"):
-        cand_tuples = [
-            (words_to_kmer_value(keys[i]), int(cc[i]), int(mc[i]), int(dc[i]))
-            for i in range(n)
-        ]
+        with _gc_paused():
+            cand_tuples = list(zip(_key_values(keys), cc.tolist(), mc.tolist(), dc.tolist()))
         report = format_report_np(keys, cc, mc, dc, k)
     m.count("candidates", n)
     return TrioResult(candidates=cand_tuples, report=report, metrics=m, tables_n=tables_n)

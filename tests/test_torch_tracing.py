@@ -7,6 +7,7 @@ import collections
 import json
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +15,7 @@ from denovo_kmer_tpu_torch.cohort import run_trio_multi_k
 from denovo_kmer_tpu_torch.config import EngineConfig
 from denovo_kmer_tpu_torch.io.synth import TrioSpec, make_trio, write_trio_bams
 from denovo_kmer_tpu_torch.ops import fused, score, stream, table
-from denovo_kmer_tpu_torch.pipeline import run_trio
+from denovo_kmer_tpu_torch.pipeline import _trio_result, run_trio
 from denovo_kmer_tpu_torch.utils import metrics as metrics_mod
 from denovo_kmer_tpu_torch.utils.metrics import Metrics, span, tally
 
@@ -207,6 +208,21 @@ def test_summary_and_to_dict_hold_counters_and_seconds_alone(traced_run, paths):
     assert m.summary() == plain.summary()
     assert m.to_dict() == plain.to_dict() == {"counters": dict(m.counters),
                                               "seconds": dict(m.seconds)}
+
+
+@pytest.mark.parametrize("n", [0, 5])
+def test_a_trio_result_is_one_report_span_and_tallies_its_candidates(n):
+    # the span and the tally the harness's ``report`` idle label and ``report_s`` read
+    cols = (np.arange(2 * n, dtype=np.uint32).reshape(n, 2),
+            *(np.full(n, c, np.uint32) for c in (3, 0, 1)))
+    m = Metrics()
+    m.count("candidates", 2)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res = _trio_result(cols, 31, m, {})
+    assert [(r.name, r.parent) for r in m.spans] == [("report", None)]
+    assert m.spans[0].device_s is None and m.span_seconds("report") > 0
+    assert m.counters["candidates"] == 2 + n and len(res.candidates) == n
+    assert [e.count for e in prof.key_averages() if e.key == "report"] == [1]
 
 
 def test_span_outside_a_call_records_nowhere_and_a_timer_binds_its_metrics():
