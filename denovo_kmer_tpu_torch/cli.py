@@ -176,13 +176,18 @@ def _profiler(args):
 #: W and step: "flush" (a parent's flush, a child's compacting flush, the spill's partition
 #: and pass steps: rows of capacity + staging window), "seed" (the scoring table's seed:
 #: rows of both parents' capacities) and "call" (the fused call: rows of capacity + window).
-#: They hold the int64 sort key a row (two for W > 2: ``ops/table._sorted_groups``),
-#: torch.sort's sorted keys, permutation, index input and radix scratch, the weight column
-#: and its scan (``ops/table._aggregate_parts``). chip_smoke.py phases 12 and 13 measure them
-#: on the card at W = 1, 2, 3 and fail if a step takes more. The most measured on an H100
-#: (flush / seed / call): W = 1 45.9 / 45.1 / 51.5, W = 2 53.8 / 49.2 / 53.1, W = 3 63.3 /
-#: 61.1 / 75.2. The W = 3 seed keeps 72: at 66 the sweep's plan (104 batches a window) ran
-#: out of memory with 27 GiB of the caching allocator's blocks free but split.
+#: A flush sorts only its staged rows (the int64 sort key a row, two for W > 2, and
+#: torch's sort scratch: ``ops/table._staged_groups``) and merges them into the table
+#: (``ops/table._merge_sorted``); a seed merges the parents and sorts nothing. The fused call
+#: sorts its whole table and window (``ops/table._sorted_groups`` in
+#: ``ops/fused._call_parts``: the sort keys, torch.sort's sorted keys, permutation and radix
+#: scratch, the weight columns and their scans). The values were fitted when a flush and a
+#: seed sorted their table too, and are kept: they over-state both, and the call's bytes set
+#: the plan's peak. chip_smoke.py phases 12 and 13 measure every step on the card at W = 1,
+#: 2, 3 and fail if one takes more. The most measured on an H100 before the merge (flush /
+#: seed / call): W = 1 45.9 / 45.1 / 51.5, W = 2 53.8 / 49.2 / 53.1, W = 3 63.3 / 61.1 /
+#: 75.2. The W = 3 seed keeps 72: at 66 the sweep's plan (104 batches a window) ran out of
+#: memory with 27 GiB of the caching allocator's blocks free but split.
 STEP_BYTES_PER_ROW = {1: {"flush": 56, "seed": 56, "call": 56},
                       2: {"flush": 56, "seed": 56, "call": 56},
                       3: {"flush": 72, "seed": 72, "call": 80}}

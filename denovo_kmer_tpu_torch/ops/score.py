@@ -21,7 +21,6 @@ import torch
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator
 from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
-    _aggregate_parts,
     _host_bits,
     _merge_sorted,
     _staged_groups,
@@ -76,14 +75,6 @@ def empty_score_table(capacity: int, words: int, device=None) -> ScoreTable:
     return ScoreTable(keys=t.keys, counts=t.counts, pcounts=t.counts.clone(), n=t.n)
 
 
-def _score_aggregate(parts, capacity: int, *input_overflows) -> ScoreTable:
-    """``_aggregate_parts`` of (rows, valid, [child count, parental pack]) blocks as a
-    ScoreTable; an overflow of any input stays sticky (see table.merge_tables)."""
-    k, cols, n = _aggregate_parts(parts, capacity)
-    return ScoreTable(keys=k, counts=cols[0], pcounts=cols[1],
-                      n=_sticky_overflow_n(n, capacity, *input_overflows))
-
-
 def _sat16(counts: torch.Tensor) -> torch.Tensor:
     """min(count, 0xFFFF) of uint32 counts held as int32 bits (a negative bit pattern is a
     count at or above 2^31), in the counts' dtype."""
@@ -123,13 +114,13 @@ def flush_score(
 
 
 def merge_score_tables(a: ScoreTable, b: ScoreTable, capacity: int) -> ScoreTable:
-    """Merge two scoring tables (both weight columns add, wrapped to 32 bits). The parental
-    pack stays exact because each key's seed lives in one input only; overflow of either
-    input is sticky (see table.merge_tables)."""
-    return _score_aggregate(
-        [(a.keys, valid_rows(a.n, a.capacity), [a.counts, a.pcounts]),
-         (b.keys, valid_rows(b.n, b.capacity), [b.counts, b.pcounts])],
-        capacity, a.n > a.capacity, b.n > b.capacity)
+    """Merge two scoring tables (both weight columns add, wrapped to 32 bits) in one
+    ``_merge_sorted``. The parental pack stays exact because each key's seed lives in one
+    input only; overflow of either input is sticky (see table.merge_tables)."""
+    keys, cols, n = _merge_sorted(a.keys, a.n, [a.counts, a.pcounts],
+                                  b.keys, b.n, [b.counts, b.pcounts], capacity)
+    return ScoreTable(keys=keys, counts=cols[0], pcounts=cols[1],
+                      n=_sticky_overflow_n(n, capacity, a.n > a.capacity, b.n > b.capacity))
 
 
 def check_call_args(tau_parent: int, min_child_count: int) -> None:

@@ -23,9 +23,9 @@ union to exactly the single-pass result.
 Spans and tallies (``utils/metrics.py``): ``spill.partition`` around a window's partition,
 ``spill.store`` around ``store_append`` (its read of the window's counts waits for the
 partition, so a profile shows there how long the host blocks on each window) and
-``spill.fold`` around the folds from the store (device spans; the table steps' own spans sit
-inside it); ``rows_partitioned`` tallies the staged rows a partition reads, ``rows_spilled``
-the rows appended to a store or a host spill.
+``spill.fold`` around a pass's fold from either spill (``_fold_pass``: device spans; the table
+steps' own spans sit inside it); ``rows_partitioned`` tallies the staged rows a partition
+reads, ``rows_spilled`` the rows appended to a store or a host spill.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from denovo_kmer_tpu_torch.ops.partition import partition_spill_blocks
+from denovo_kmer_tpu_torch.ops.score import flush_score
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, flush, staged_valid
 from denovo_kmer_tpu_torch.ops.table import KmerTable
 from denovo_kmer_tpu_torch.parallel.router import bucketize, pass_of, route_capacity
@@ -147,6 +148,14 @@ def partition_window(
     return disp, counts, ovf, acc._replace(fill=0)
 
 
+def _spilled_counts(counts) -> List[int]:
+    """A partitioned window's per-pass row counts on the host (the window's one sync),
+    tallied as ``rows_spilled``."""
+    counts = torch.as_tensor(counts).cpu().tolist()
+    tally("rows_spilled", sum(counts))
+    return counts
+
+
 def store_append(store: PassStore, disp: torch.Tensor, counts) -> PassStore:
     """Append a partitioned window to the device store, in place: one slice write per
     pass at its fill. Rows past the allocation are not written, but ``fill`` advances by
@@ -154,9 +163,7 @@ def store_append(store: PassStore, disp: torch.Tensor, counts) -> PassStore:
     alloc = store.rows.shape[1]
     fill = list(store.fill)
     with span("spill.store", store.rows.device):
-        counts = torch.as_tensor(counts).cpu().tolist()
-        tally("rows_spilled", sum(counts))
-        for p, c in enumerate(counts):
+        for p, c in enumerate(_spilled_counts(counts)):
             take = max(0, min(c, alloc - fill[p]))
             if take:
                 store.rows[p, fill[p]:fill[p] + take] = disp[p, :take]
@@ -173,49 +180,48 @@ def spill_capacity(acc_slots: int, n_passes: int, factor: float) -> int:
 # counting from a spill: fold stored rows (no extraction) into tables
 # ---------------------------------------------------------------------------
 
-def _chunk_acc(rows: torch.Tensor, n_valid: int) -> KmerAccumulator:
-    S = rows.shape[0]
-    slot = torch.arange(S, device=rows.device)
-    return KmerAccumulator(kmers=rows, valid=slot < n_valid, fill=S)
-
-
-def _fold_chunk(rows: torch.Tensor, table: KmerTable, n_valid: int) -> KmerTable:
-    """Flush one (S, W) chunk of spill rows (first ``n_valid`` real) into a table."""
-    return flush(_chunk_acc(rows, n_valid), table)[1]
-
-
-def count_pass_from_store(store: PassStore, pass_id: int, table: KmerTable,
-                          chunk_rows: int) -> KmerTable:
-    """Build or extend ``table`` from the store's pass-``pass_id`` rows, ``chunk_rows`` at a
-    time (one flush each). Rows per pass must be a multiple of ``chunk_rows``."""
-    N = store.rows.shape[1]
+def _pass_chunks(spill, pass_id: int, chunk_rows: int,
+                 device) -> Iterator[Tuple[torch.Tensor, int]]:
+    """Pass ``pass_id`` of a ``PassStore`` or a ``HostSpill`` as (rows (chunk_rows, W) int32
+    on ``device``, valid rows) chunks, at least one where the pass is empty: slices of the
+    store's rows (a multiple of ``chunk_rows`` a pass), or the host files read a chunk at
+    a time (``read_chunks``), each copied to the device."""
+    if isinstance(spill, HostSpill):
+        return ((torch.from_numpy(buf.view(np.int32)).to(device), take)
+                for buf, take in spill.read_chunks(pass_id, chunk_rows))
+    N = spill.rows.shape[1]
     if N % chunk_rows:
         raise ValueError(f"store rows/pass ({N}) % chunk_rows ({chunk_rows}) != 0")
-    n = store.fill[pass_id]
-    rows = store.rows[pass_id]
-    with span("spill.fold", rows.device):
-        for start in range(0, max(n, 1), chunk_rows):
-            table = _fold_chunk(rows[start:start + chunk_rows], table, n - start)
-    return table
+    n, rows = spill.fill[pass_id], spill.rows[pass_id]
+    return ((rows[start:start + chunk_rows], n - start)
+            for start in range(0, max(n, 1), chunk_rows))
 
 
-def _fold_chunk_score(rows: torch.Tensor, stab, n_valid: int):
-    """Scored twin of ``_fold_chunk`` (child pass: parent-seeded ScoreTable)."""
-    from denovo_kmer_tpu_torch.ops.score import flush_score
+def _fold_pass(chunks, state, step):
+    """Fold a pass's chunks into ``state`` (a KmerTable through ``flush``, a ScoreTable
+    through ``flush_score``), one ``step`` a chunk, inside one ``spill.fold`` span."""
+    dev = state.keys.device
+    with span("spill.fold", dev):
+        for rows, n_valid in chunks:
+            S = rows.shape[0]
+            acc = KmerAccumulator(kmers=rows, valid=torch.arange(S, device=dev) < n_valid,
+                                  fill=S)
+            state = step(acc, state)[1]
+    return state
 
-    return flush_score(_chunk_acc(rows, n_valid), stab)[1]
+
+def count_pass_from_store(store, pass_id: int, table: KmerTable, chunk_rows: int) -> KmerTable:
+    """Build or extend ``table`` from pass ``pass_id`` of a ``PassStore`` or a ``HostSpill``,
+    ``chunk_rows`` at a time (one flush each)."""
+    return _fold_pass(_pass_chunks(store, pass_id, chunk_rows, table.keys.device), table,
+                      flush)
 
 
-def score_pass_from_store(store: PassStore, pass_id: int, stab, chunk_rows: int):
-    N = store.rows.shape[1]
-    if N % chunk_rows:
-        raise ValueError(f"store rows/pass ({N}) % chunk_rows ({chunk_rows}) != 0")
-    n = store.fill[pass_id]
-    rows = store.rows[pass_id]
-    with span("spill.fold", rows.device):
-        for start in range(0, max(n, 1), chunk_rows):
-            stab = _fold_chunk_score(rows[start:start + chunk_rows], stab, n - start)
-    return stab
+def score_pass_from_store(store, pass_id: int, stab, chunk_rows: int):
+    """``count_pass_from_store`` into a parent-seeded ScoreTable (one ``flush_score`` a
+    chunk): the child's pass."""
+    return _fold_pass(_pass_chunks(store, pass_id, chunk_rows, stab.keys.device), stab,
+                      flush_score)
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +316,7 @@ class HostSpill:
     def append_window(self, disp: torch.Tensor, counts) -> None:
         """Write one partitioned window ((P, cap, W) int32 bits + per-pass counts): only
         ``disp[p, :counts[p]]`` leaves the device."""
-        counts = torch.as_tensor(counts).cpu().tolist()
-        tally("rows_spilled", sum(counts))
-        for p, c in enumerate(counts):
+        for p, c in enumerate(_spilled_counts(counts)):
             if c:
                 rows = disp[p, :c].cpu().numpy()
                 self._files[p].write(np.ascontiguousarray(rows).tobytes())

@@ -1,8 +1,10 @@
 """Device k-mer table: sorted multi-word keys + counts, static capacity.
 
 Port of ``denovo_kmer_tpu/ops/table.py``. The table is a sorted array of W-word keys with a
-parallel count vector; build/merge are sort + segment-aggregate, probes are vectorized
-branch-free binary searches.
+parallel count vector; a build is sort + segment-aggregate, probes are vectorized
+branch-free binary searches. Rows that are already sorted and unique (a table, a row
+partial) are merged into a table (``_merge_sorted``); only unsorted rows are sorted
+(``_staged_groups``, ``_aggregate_parts``).
 
 Representation: key words and counts are int32 tensors holding the uint32 values' bits, so a
 ``KmerTable`` row costs 4W+4 B as the JAX package's does (torch has no uint32 arithmetic).
@@ -392,10 +394,9 @@ def valid_rows(n: torch.Tensor, capacity: int) -> torch.Tensor:
 
 
 def merge_tables(a: KmerTable, b: KmerTable, capacity: int) -> KmerTable:
-    """Merge two tables (count addition) into a table of the given capacity."""
-    keys, cols, n = _aggregate_parts([(a.keys, valid_rows(a.n, a.capacity), [a.counts]),
-                                      (b.keys, valid_rows(b.n, b.capacity), [b.counts])],
-                                     capacity)
+    """Merge two tables (count addition) into a table of the given capacity: both are
+    sorted and unique, so one ``_merge_sorted``; an overflow of either input stays sticky."""
+    keys, cols, n = _merge_sorted(a.keys, a.n, [a.counts], b.keys, b.n, [b.counts], capacity)
     return KmerTable(keys=keys, counts=cols[0],
                      n=_sticky_overflow_n(n, capacity, a.n > a.capacity, b.n > b.capacity))
 

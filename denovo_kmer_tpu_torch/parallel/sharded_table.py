@@ -17,8 +17,10 @@ run once a shard, and the collectives between them are ``mesh.all_to_all`` / ``p
   by the next ingest just before that batch is extracted into the emptied buffer (the JAX
   fused flush+ingest); without it the window is routed right after its last batch. Both
   route the same windows, so the tables are identical.
-- ``finalize`` gathers the R row partials of each column over the reads axis and folds them
-  in one aggregate, leaving every row holding the complete shard ``t``.
+- ``finalize`` gathers the R row partials of each column over the reads axis and merges
+  them, leaving every row holding the complete shard ``t``. A window folds into a row
+  partial as a single-device flush folds its staging window (``ops/stream.flush``), so each
+  table stays sorted and unique and every fold into one is a merge.
 - The child is scored against a parent-seeded table (seeded on row 0 only: the finalize sums
   row partials) and ``finalize_call_score`` runs the fused call on the gathered partials:
   one key sort a shard and exact group sums (``ops/fused.call_rows``). The JAX call computes
@@ -59,18 +61,18 @@ from denovo_kmer_tpu_torch.ops.score import (
     empty_score_table,
     seed_score_table,
 )
+from denovo_kmer_tpu_torch.ops.score import flush_score as flush_score_table
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, empty_accumulator, staged_valid
+from denovo_kmer_tpu_torch.ops.stream import flush as flush_table
 from denovo_kmer_tpu_torch.ops.table import (
     PAD,
     KmerTable,
-    _aggregate_multi,
-    _aggregate_parts,
+    _merge_sorted,
     _sticky_overflow_n,
     empty_table,
     merge_tables,
     table_from_numpy,
     u32,
-    valid_rows,
 )
 from denovo_kmer_tpu_torch.ops.trio import call_candidates
 from denovo_kmer_tpu_torch.oracle.scalar import words_to_kmer_value
@@ -189,17 +191,11 @@ class ShardedKmerEngine:
         return routed, ovf
 
     def _fold_window(self, ltab, rk, rv):
-        """Aggregate routed window rows into a shard's row-partial table: a KmerTable, or a
-        ScoreTable whose pcounts column rides along (routed rows weigh 1, pcounts 0)."""
-        C = self.shard_capacity
-        scored = isinstance(ltab, ScoreTable)
-        weights = ([ltab.counts, ltab.pcounts], [1, 0]) if scored else ([ltab.counts], [1])
-        keys, cols, n = _aggregate_parts([(ltab.keys, valid_rows(ltab.n, C), weights[0]),
-                                          (rk, rv, weights[1])], C)
-        n = _sticky_overflow_n(n, C, ltab.n > C)
-        if scored:
-            return ScoreTable(keys=keys, counts=cols[0], pcounts=cols[1], n=n)
-        return KmerTable(keys=keys, counts=cols[0], n=n)
+        """Fold routed window rows into a shard's row-partial table as a flush folds its
+        staging window: ``ops/stream.flush`` into a KmerTable, ``ops/score.flush_score``
+        into a ScoreTable (routed rows weigh 1 and carry pcounts 0, as staged rows do)."""
+        step = flush_score_table if isinstance(ltab, ScoreTable) else flush_table
+        return step(KmerAccumulator(kmers=rk, valid=rv, fill=rk.shape[0]), ltab)[1]
 
     def _extract(self, acc: KmerAccumulator, block, pass_id: int) -> KmerAccumulator:
         """Append one shard's block of a batch to its staging buffer. The extraction width
@@ -261,29 +257,33 @@ class ShardedKmerEngine:
             )
 
     def _gathered(self, tables) -> list:
-        """Per shard: its column's R row partials gathered over the reads axis, flattened
-        to (keys (R·C, W), [weight columns], valid (R·C,))."""
-        C, R, W = self.shard_capacity, self.R, self.W
+        """Per shard: its column's R row partials gathered over the reads axis, (keys
+        (R, C, W), [weight columns (R, C)], n (R,))."""
         scored = isinstance(self._local(tables)[0], ScoreTable)
         cols = ["counts", "pcounts"] if scored else ["counts"]
         g = {name: all_gather(self.mesh, _attr(tables, name)) for name in ["keys", "n"] + cols}
-
-        def one(r, t, d):
-            n_all = g["n"][r][t]
-            valid = (torch.arange(C, device=d)[None, :] < n_all[:, None]).reshape(R * C)
-            return (g["keys"][r][t].reshape(R * C, W),
-                    [g[c][r][t].reshape(R * C) for c in cols], valid, n_all)
-
-        return self._grid(one)
+        return self._grid(lambda r, t, d: (g["keys"][r][t], [g[c][r][t] for c in cols],
+                                           g["n"][r][t]))
 
     def _finalize_tables(self, tables) -> list:
-        """Fold each column's row partials so every row holds the full shard: ONE
-        concat-aggregate of R·C rows a shard; overflow of any partial stays sticky."""
-        C, R = self.shard_capacity, self.R
+        """Fold each column's row partials so every row holds the full shard: each partial
+        is sorted and unique, so they merge in pairs (``_merge_sorted``), every merge but
+        the last at its inputs' rows together. Nothing is dropped before the last merge, so
+        ``n`` is the union's size, as one aggregate of the R·C rows gives it; an overflow of
+        any partial stays sticky."""
+        C = self.shard_capacity
 
-        def fold(keys, cols, valid, n_all):
-            out_keys, out_cols, n = _aggregate_multi(keys, cols, valid, C)
-            n = _sticky_overflow_n(n, C, *[n_all[r] > C for r in range(R)])
+        def fold(keys, cols, n_all):
+            parts = [(keys[r], [c[r] for c in cols], n_all[r].clamp(max=C))
+                     for r in range(self.R)]
+            while len(parts) > 1:
+                last = len(parts) == 2
+                odd = parts[-1:] if len(parts) % 2 else []
+                parts = [_merge_sorted(ak, an, ac, bk, bn, bc,
+                                       C if last else ak.shape[0] + bk.shape[0])
+                         for (ak, ac, an), (bk, bc, bn) in zip(parts[::2], parts[1::2])] + odd
+            out_keys, out_cols, n = parts[0]
+            n = _sticky_overflow_n(n, C, (n_all > C).any())
             if len(out_cols) == 1:
                 return KmerTable(keys=out_keys, counts=out_cols[0], n=n)
             return ScoreTable(keys=out_keys, counts=out_cols[0], pcounts=out_cols[1], n=n)
@@ -621,10 +621,13 @@ class ShardedKmerEngine:
         cfg = self.cfg
         W = self.W
 
-        def call(keys, cols, valid, _n_all):
+        def call(keys, cols, n_all):
+            R, C = keys.shape[:2]
+            valid = (torch.arange(C, device=keys.device)[None, :] < n_all[:, None]).reshape(-1)
+            keys = keys.reshape(R * C, W)
             words = [torch.where(valid, u32(keys[:, w]), PAD) for w in range(W)]
-            cnt = torch.where(valid, cols[0], 0)
-            pc = torch.where(valid, cols[1], 0)
+            cnt = torch.where(valid, cols[0].reshape(-1), 0)
+            pc = torch.where(valid, cols[1].reshape(-1), 0)
             return call_rows(words, cnt, pc, cfg.tau_parent, cfg.min_child_count)
 
         g = self._gathered(state.table)

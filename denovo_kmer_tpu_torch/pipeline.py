@@ -62,7 +62,7 @@ from denovo_kmer_tpu_torch.ops.trio import Candidates
 from denovo_kmer_tpu_torch.parallel.router import pass_of
 from denovo_kmer_tpu_torch.utils.checkpoint import maybe_load_flat_table
 from denovo_kmer_tpu_torch.utils.device import resolve_device
-from denovo_kmer_tpu_torch.utils.metrics import Metrics, span
+from denovo_kmer_tpu_torch.utils.metrics import Metrics
 
 
 def _ascii_words(strs: Iterable[str]) -> np.ndarray:
@@ -1031,8 +1031,6 @@ def run_trio_spill(
     from denovo_kmer_tpu_torch.ops.spill import (
         HostSpill,
         SpillOverflowError,
-        _fold_chunk,
-        _fold_chunk_score,
         alloc_pass_rows,
         count_pass_from_store,
         empty_pass_store,
@@ -1111,18 +1109,8 @@ def run_trio_spill(
     # ---- per-pass counting from the spills (no decode, no extract) ----
     C = cfg.table_capacity
 
-    def host_chunks(sp, p):
-        for buf, take in sp.read_chunks(p, chunk_rows):
-            yield torch.from_numpy(buf.view(np.int32)).to(dev), take
-
     def fold_table(sp, p):
-        table = empty_table(C, cfg.words, dev)
-        if isinstance(sp, HostSpill):
-            with span("spill.fold", dev):
-                for rows, take in host_chunks(sp, p):
-                    table = _fold_chunk(rows, table, take)
-        else:
-            table = count_pass_from_store(sp, p, table, chunk_rows)
+        table = count_pass_from_store(sp, p, empty_table(C, cfg.words, dev), chunk_rows)
         return table, _check_table(table, cfg)
 
     parts = []
@@ -1135,13 +1123,7 @@ def run_trio_spill(
             tables_n["dad"] += n_d
             stab = seed_score_table(mom_p, dad_p, C)
             del mom_p, dad_p  # only the scoring table is read from here on
-            sp = spills["child"]
-            if isinstance(sp, HostSpill):
-                with span("spill.fold", dev):
-                    for rows, take in host_chunks(sp, p):
-                        stab = _fold_chunk_score(rows, stab, take)
-            else:
-                stab = score_pass_from_store(sp, p, stab, chunk_rows)
+            stab = score_pass_from_store(spills["child"], p, stab, chunk_rows)
             _check_table(stab, cfg)
             tables_n["child"] += int((stab.counts != 0).sum())
             cands = call_from_score(stab, cfg.tau_parent, cfg.min_child_count)

@@ -23,8 +23,12 @@ from denovo_kmer_tpu.parallel.sharded_table import RouteOverflowError as JaxRout
 from denovo_kmer_tpu.parallel.sharded_table import ShardedKmerEngine as JaxEngine
 from denovo_kmer_tpu.utils.checkpoint import save_table as jax_save_table
 from denovo_kmer_tpu_torch.config import EngineConfig
+from denovo_kmer_tpu_torch.ops import score as tscore
+from denovo_kmer_tpu_torch.ops import stream as tstream
+from denovo_kmer_tpu_torch.ops import table as ttable
 from denovo_kmer_tpu_torch.ops.pack import pack_seqs
 from denovo_kmer_tpu_torch.ops.table import table_from_numpy
+from denovo_kmer_tpu_torch.parallel import sharded_table as tsharded
 from denovo_kmer_tpu_torch.parallel.mesh import make_mesh
 from denovo_kmer_tpu_torch.parallel.sharded_table import RouteOverflowError, ShardedKmerEngine
 from denovo_kmer_tpu_torch.utils.checkpoint import load_table
@@ -93,10 +97,23 @@ def _assert_same_npz(a, b):
 
 
 @pytest.mark.parametrize("shape", MESHES)
-def test_engine_tables_and_call_match_jax(shape, tmp_path):
+def test_engine_tables_and_call_match_jax(shape, tmp_path, monkeypatch):
     """Parents over several windows (accum 2, 5 batches), the seeded child, the fused call
     and the compacting finalize_score + call_score; the tables saved by both packages hold
-    the same arrays and meta, and each package loads the other's file."""
+    the same arrays and meta, and each package loads the other's file. The port's window
+    folds and finalizes merge (``ops/table._merge_sorted``) and never sort a table
+    (``_aggregate_parts``)."""
+    merges, sorts = [], []
+
+    def counted(calls, real):
+        def wrapped(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+        return wrapped
+
+    for mod in (ttable, tstream, tscore, tsharded):
+        monkeypatch.setattr(mod, "_merge_sorted", counted(merges, mod._merge_sorted))
+    monkeypatch.setattr(ttable, "_aggregate_parts", counted(sorts, ttable._aggregate_parts))
     # windows of 2 batches of 8-64 reads a shard: a wide route capacity
     jeng, peng = _engines(shape, accum_batches=2, route_capacity_factor=4.0)
     cfg = dict(CFG, accum_batches=2, route_capacity_factor=4.0, mesh_shape=shape)
@@ -140,6 +157,7 @@ def test_engine_tables_and_call_match_jax(shape, tmp_path):
     # the three-table call (ops/trio.call_candidates a shard) on the finalized child table
     jchild, pchild = _build(jeng, jch_b), _build(peng, pch_b)
     assert peng.call(pchild, pmom, pdad) == jeng.call(jchild, jmom, jdad) == want[0]
+    assert merges and not sorts
 
 
 def _scored_twice(eng, mom, dad, batch):
@@ -259,17 +277,19 @@ def test_overlap_on_and_off_are_bit_identical(shape):
 
 def test_sticky_table_overflow_raises_jax_message():
     """A shard that overflowed in an early window stays overflowed through later windows
-    and the finalize: both packages raise the same message (the same sticky n)."""
-    cfg = dict(CFG, table_capacity=256, accum_batches=1, mesh_shape=(2, 2))
-    jeng = JaxEngine(JaxConfig(**cfg), jax_make_mesh((2, 2), jax.devices()[:4]))
-    peng = ShardedKmerEngine(EngineConfig(**cfg), make_mesh((2, 2), device="cpu"))
-    jb, pb = _batches([_seqs(i, 64) for i in range(3)], cfg)
-    msgs = []
-    for eng, batches in ((jeng, jb), (peng, pb)):
-        with pytest.raises(RuntimeError, match="table shard overflow") as e:
-            _build(eng, batches)
-        msgs.append(str(e.value))
-    assert msgs[0] == msgs[1]
+    and the finalize: both packages raise the same message (the same sticky n). At R = 4
+    the finalize's first merges overflow too, and its n is still the union's size."""
+    for shape in ((2, 2), (4, 1)):
+        cfg = dict(CFG, table_capacity=256, accum_batches=1, mesh_shape=shape)
+        jeng = JaxEngine(JaxConfig(**cfg), jax_make_mesh(shape, jax.devices()[:4]))
+        peng = ShardedKmerEngine(EngineConfig(**cfg), make_mesh(shape, device="cpu"))
+        jb, pb = _batches([_seqs(i, 64) for i in range(3)], cfg)
+        msgs = []
+        for eng, batches in ((jeng, jb), (peng, pb)):
+            with pytest.raises(RuntimeError, match="table shard overflow") as e:
+                _build(eng, batches)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1], shape
 
 
 def test_route_overflow_raises_jax_message():

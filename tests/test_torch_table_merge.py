@@ -1,7 +1,8 @@
-"""The table steps that merge (``flush``, ``flush_score``, ``seed_score_table``) against the
-sort of everything (``ops/table._aggregate_parts``) over the same parts, bit for bit in keys,
-weights and ``n``, at W = 1, 2, 3, 4 (k = 16, 31, 41, 63); and the merge kernel
-(``csrc/table_merge.cu``) against its plain version on the card (``cuda``-marked)."""
+"""The table steps that merge (``flush``, ``flush_score``, ``seed_score_table``,
+``merge_tables``, ``merge_score_tables``) against the sort of everything
+(``ops/table._aggregate_parts``) over the same parts, bit for bit in keys, weights and
+``n``, at W = 1, 2, 3, 4 (k = 16, 31, 41, 63); and the merge kernel (``csrc/table_merge.cu``)
+against its plain version on the card (``cuda``-marked)."""
 
 import os
 import sys
@@ -14,7 +15,9 @@ from denovo_kmer_tpu_torch.ops import table_merge
 from denovo_kmer_tpu_torch.ops.score import (
     ScoreTable,
     _sat16,
+    empty_score_table,
     flush_score,
+    merge_score_tables,
     seed_score_table,
 )
 from denovo_kmer_tpu_torch.ops.stream import KmerAccumulator, flush, staged_valid
@@ -22,6 +25,7 @@ from denovo_kmer_tpu_torch.ops.table import (
     KmerTable,
     _aggregate_parts,
     _sticky_overflow_n,
+    merge_tables,
     valid_rows,
 )
 
@@ -163,6 +167,12 @@ def test_merging_steps_equal_the_sort_of_everything(k, case):
     seed = seed_score_table(mom, dad, cap)
     _same(seed, keys, cols, n, f"seed {case}")
 
+    # merge_tables: the table and the window flushed into an empty table (dad)
+    keys, cols, n = _aggregate_parts([(table.keys, valid_rows(table.n, C), [table.counts]),
+                                      (dad.keys, valid_rows(dad.n, C), [dad.counts])], C)
+    _same(merge_tables(table, dad, C), keys, cols,
+          _sticky_overflow_n(n, C, table.n > C, dad.n > C), f"merge_tables {case}")
+
     # flush_score: a scoring table with parental packs, and the staged rows (pcounts 0)
     if case == "tight_seed_then_grow":  # the pipeline's call lane: cut the seed, grow it
         tight = max(1 << (max(int(seed.n), 1) - 1).bit_length(), 8)
@@ -178,6 +188,14 @@ def test_merging_steps_equal_the_sort_of_everything(k, case):
         Co)
     _out, got = flush_score(acc, stab, out_capacity=out_c)
     _same(got, keys, cols, _sticky_overflow_n(n, Co, stab.n > Cs), f"flush_score {case}")
+
+    # merge_score_tables: that scoring table and the window flushed into an empty one
+    window = flush_score(acc, empty_score_table(C, W, "cpu"))[1]
+    keys, cols, n = _aggregate_parts(
+        [(stab.keys, valid_rows(stab.n, Cs), [stab.counts, stab.pcounts]),
+         (window.keys, valid_rows(window.n, C), [window.counts, window.pcounts])], Co)
+    _same(merge_score_tables(stab, window, Co), keys, cols,
+          _sticky_overflow_n(n, Co, stab.n > Cs, window.n > C), f"merge_score_tables {case}")
 
 
 def test_merge_checks_its_inputs():
