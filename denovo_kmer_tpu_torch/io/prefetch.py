@@ -4,14 +4,26 @@ The host decode/pack path and the device pipeline (extract → append → flush)
 resources; without overlap the card idles during host work and vice versa.
 ``prefetch_batches`` (a copy of ``denovo_kmer_tpu/io/prefetch.py``'s) wraps any packed-batch
 iterator with a daemon thread and a bounded queue so batch N+1 is decoded while batch N
-computes. ``prefetch_placed`` adds a second thread that places each batch on the device.
+computes. ``prefetch_placed`` places each decoded batch on the device.
 
-Placement on CUDA: each array is copied into pinned host memory and sent with
-``.to(device, non_blocking=True)`` on a side CUDA stream, and an event is recorded after the
-batch. The consumer's stream waits on that event before it uses the batch, and each tensor
-is marked with ``record_stream`` so the caching allocator does not hand its memory to the
-side stream while the consumer's kernels may still read it. On the CPU the arrays pass
-through as tensors that share their memory.
+Every feed is one loop: a daemon thread decodes, and the caller's (the dispatch) thread places
+each batch when it asks for the next one. A transfer thread of its own would hand each batch
+across once more and contend with the dispatch loop for the GIL; on the card that cost the
+feed more than the copy it overlapped. Only the placement differs: ``put`` when the caller
+gives one; on the CPU the arrays pass through as tensors that share their memory; on CUDA a
+ring of reused pinned staging slots (``StagingRing``), which the feed allocates once and
+frees when it closes, however it closes. Each batch takes the ring's next slot: every array
+it ships (``words``, then ``vwords`` or ``length``) is copied into its own 256-B aligned
+segment of the slot, and the slot's used prefix goes to the device in one ``non_blocking``
+copy, on the caller's current stream, into one fresh device buffer from the caching
+allocator; the batch's tensors are contiguous views of that buffer, ordered after the copy by
+the stream itself (a caller that uses a batch on another stream waits for and
+``record_stream``s it there). An event recorded after the copy marks the slot: the ring
+refills a slot only after its event has completed. Device buffers are not ringed: a caller
+may hold a placed batch past its next ``next()`` (the ``(packed, cursor)`` feed of a
+resumable count, the spill's staging window), so their lifetimes stay with the caching
+allocator. A slot is sized to the first batch it holds and re-allocated only when a larger
+one arrives (a bucketed stream).
 
 Exceptions raised by the producer are re-raised in the consumer at the point of ``next()``.
 """
@@ -19,6 +31,7 @@ Exceptions raised by the producer are re-raised in the consumer at the point of 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import sys
 import threading
@@ -159,83 +172,166 @@ def _place_item(item, put: Callable, ship_lengths: bool = False):
     return item
 
 
-def _placed_tensors(item) -> Iterator[torch.Tensor]:
-    if isinstance(item, PackedReads):
-        for t in (item.words, item.vwords, item.length):
-            if isinstance(t, torch.Tensor):
-                yield t
-    elif isinstance(item, tuple):
-        for x in item:
-            yield from _placed_tensors(x)
-
-
-def as_int32_tensor(a: np.ndarray) -> torch.Tensor:
-    """A host tensor sharing ``a``'s memory, with uint32 words seen as int32 (same bits)."""
+def _as_int32(a: np.ndarray) -> np.ndarray:
+    """``a`` contiguous, with uint32 words seen as int32 (same bits)."""
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     if a.dtype != np.int32:
         raise TypeError(f"expected uint32 or int32 batch arrays, got {a.dtype}")
-    return torch.from_numpy(a)
+    return a
+
+
+def as_int32_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host tensor sharing ``a``'s memory, with uint32 words seen as int32 (same bits)."""
+    return torch.from_numpy(_as_int32(a))
+
+
+#: int32 elements between segment starts in a staging slot and its device buffer (256 B)
+_ALIGN = 64
+
+
+class StagingRing:
+    """``n_slots`` reused host staging slots: one host copy an array and one transfer a batch.
+
+    ``alloc(n)`` makes a slot of ``n`` int32 elements (pinned memory on CUDA);
+    ``transfer(host)`` starts the copy of a slot's used prefix to the device and returns
+    ``(buffer, event)``, the event completing when the slot may be refilled. Slots are used in
+    turn; a slot is refilled only after its last event has completed (``query()``, then
+    ``synchronize()`` if it has not). ``stats`` gets ``feed_staged`` (batches placed),
+    ``feed_ring_waits`` (refills that found their slot's transfer in flight),
+    ``feed_ring_wait`` (the seconds those refills waited), ``feed_ring_grows`` (slot
+    re-allocations) and ``feed_place_cpu`` (the placing thread's CPU seconds), all written
+    by the one thread that places."""
+
+    def __init__(self, n_slots: int, alloc: Callable, transfer: Callable,
+                 stats: dict = None):
+        self.alloc, self.transfer = alloc, transfer
+        self.slots: list = [None] * n_slots
+        self.hosts: list = [None] * n_slots  # each slot's memory as a numpy array
+        self.events: list = [None] * n_slots
+        self.turn = 0
+        self.stats = stats if stats is not None else {}
+        for key in ("feed_staged", "feed_ring_waits", "feed_ring_grows"):
+            self.stats.setdefault(key, 0)
+        for key in ("feed_ring_wait", "feed_place_cpu"):
+            self.stats.setdefault(key, 0.0)
+
+    def place(self, item, ship_lengths: bool = False):
+        """``item`` with the arrays it ships (``_place_item``) as views of one device buffer;
+        an item with no PackedReads passes through."""
+        t0 = time.thread_time()
+        arrays: list = []
+        _place_item(item, lambda a: arrays.append(_as_int32(a)), ship_lengths)
+        if not arrays:
+            return item
+        offsets, total = [], 0
+        for a in arrays:
+            offsets.append(total)
+            total += -(-a.size // _ALIGN) * _ALIGN
+        i = self.turn
+        self.turn = (i + 1) % len(self.slots)
+        event = self.events[i]
+        if event is not None and not event.query():
+            self.stats["feed_ring_waits"] += 1
+            t_wait = time.perf_counter()
+            event.synchronize()
+            self.stats["feed_ring_wait"] += time.perf_counter() - t_wait
+        slot = self.slots[i]
+        if slot is None or slot.numel() < total:
+            if slot is not None:
+                self.stats["feed_ring_grows"] += 1
+            self.slots[i] = self.hosts[i] = None  # free the smaller slot first
+            slot = self.slots[i] = self.alloc(total)
+            self.hosts[i] = slot.numpy()
+        host = self.hosts[i]
+        for a, o in zip(arrays, offsets):
+            # numpy's copy: one memcpy without the GIL and without torch's intra-op threads,
+            # whose team spins on the host's cores after each parallel copy
+            np.copyto(host[o:o + a.size].reshape(a.shape), a)
+        buffer, self.events[i] = self.transfer(slot.narrow(0, 0, total))
+        # the same walk as the one that listed the arrays, so each gets its own view
+        views = iter([buffer.narrow(0, o, a.size).view(a.shape)
+                      for a, o in zip(arrays, offsets)])
+        placed = _place_item(item, lambda _a: next(views), ship_lengths)
+        self.stats["feed_staged"] += 1
+        self.stats["feed_place_cpu"] += time.thread_time() - t0
+        return placed
+
+    def close(self) -> None:
+        """Free the slots (a transfer still in flight keeps its pinned block in the caching
+        host allocator until it completes)."""
+        n = len(self.slots)
+        self.slots, self.hosts, self.events = [None] * n, [None] * n, [None] * n
+
+
+def _cuda_ring_parts(device: torch.device) -> tuple:
+    """(alloc, transfer) of a ring on ``device``: pinned slots, and the copy of a slot into a
+    fresh device buffer on the device's current stream, with an event after it."""
+    def alloc(n):
+        return torch.empty(n, dtype=torch.int32, pin_memory=True)
+
+    def transfer(host):
+        buffer = torch.empty(host.shape, dtype=torch.int32, device=device)
+        buffer.copy_(host, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        return buffer, event
+
+    return alloc, transfer
 
 
 def prefetch_placed(batches: Iterable[T], device=None, depth: int = 2,
                     decode_depth: int = 2, put: Callable = None,
                     ship_lengths: bool = False, stats: dict = None) -> Iterator[T]:
-    """Three-thread host→device pipeline: decode/pack on one daemon thread, host→device
-    transfer on a second (a side CUDA stream), compute dispatch on the caller's thread.
-    Items are PackedReads, bare or inside tuples (``_place_item``), placed on ``device``
-    (``None``: the card).
+    """Host→device pipeline: decode/pack on a daemon thread behind a queue of
+    ``decode_depth + depth`` batches, then placement and compute dispatch on the caller's
+    thread (``_feed``). Items are PackedReads, bare or inside tuples (``_place_item``),
+    placed on ``device`` (``None``: the card).
+
+    On CUDA each batch goes through a ring of ``depth + 1`` reused pinned staging slots
+    (``StagingRing``, the module's docstring): one host copy an array and one transfer a
+    batch on the caller's current stream, a slot refilled only once its last transfer has
+    completed. The device buffers stay with the caching allocator, since a caller may hold a
+    placed batch past its next ``next()``. The ring's tallies go into ``stats``.
 
     ``put`` overrides the placement: each host array of a batch becomes ``put(array)``
     (``device`` is then unused), and the caller orders the copies it makes. ``stats`` track
-    the consumer-facing stage; a leaked decode thread (the one inside the caller's stream)
-    is reported there too, for ``close_unless_leaked``. Each wait on the transfer stage is a
-    ``feed_wait`` span of the running call (``utils/metrics.py``)."""
+    the consumer-facing stage (``_feed``); a leaked decode thread (the one inside the
+    caller's stream) is reported there too, for ``close_unless_leaked``."""
     device = None if put is not None else resolve_device(device)
-    inner_stats: dict = {}
-    inner = prefetch_batches(batches, depth=decode_depth, stats=inner_stats)
+    ring = None
     if put is not None:
-        def place(b):
-            return _place_item(b, put, ship_lengths), None
+        place = functools.partial(_place_item, put=put, ship_lengths=ship_lengths)
     elif device.type == "cuda":
-        side = torch.cuda.Stream(device=device)
-
-        def put(a):
-            host = as_int32_tensor(a).pin_memory()
-            with torch.cuda.stream(side):
-                return host.to(device, non_blocking=True)
-
-        def place(b):
-            placed = _place_item(b, put, ship_lengths)
-            ready = torch.cuda.Event()
-            ready.record(side)
-            return placed, ready
+        ring = StagingRing(depth + 1, *_cuda_ring_parts(device), stats)
+        place = functools.partial(ring.place, ship_lengths=ship_lengths)
     else:
-        def place(b):
-            return _place_item(b, as_int32_tensor, ship_lengths), None
+        place = functools.partial(_place_item, put=as_int32_tensor, ship_lengths=ship_lengths)
+    yield from _feed(batches, place, decode_depth + depth, stats, ring)
 
-    outer = prefetch_batches((place(b) for b in inner), depth=depth, stats=stats)
+
+def _feed(batches: Iterable, place: Callable, depth: int, stats: dict = None,
+          ring: StagingRing = None) -> Iterator:
+    """``place(batch)`` for each of ``batches``, decoded on a daemon thread behind a queue of
+    ``depth`` (``prefetch_batches``, which keeps ``stats``), placed on the caller's thread
+    when it is asked for. ``consumer_wait_s`` and each ``feed_wait`` span of the running call
+    (``utils/metrics.py``) are the caller's time to get its next placed batch: its wait on
+    the decode thread and the placement. Closing the feed, early or on an error, joins the
+    decode thread and frees ``ring``."""
+    inner = prefetch_batches(batches, depth=depth, stats=stats)
     try:
         while True:
-            with span("feed_wait"):  # the dispatch thread waits on the transfer stage
-                placed = next(outer, None)
-            if placed is None:
-                return
-            item, ready = placed
-            if ready is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(ready)
-                for t in _placed_tensors(item):
-                    t.record_stream(consumer)
+            with span("feed_wait"):
+                batch = next(inner, _DONE)
+                if batch is _DONE:
+                    return
+                t0 = time.perf_counter()
+                item = place(batch)
+            if stats is not None:
+                stats["consumer_wait_s"] += time.perf_counter() - t0
             yield item
     finally:
-        # close the transfer stage first (its finally joins the transfer thread), then
-        # the decode stage — only then may the caller close the input stream underneath
-        outer.close()
-        try:
-            inner.close()
-        except ValueError:  # transfer-thread join timed out mid-iteration
-            pass
-        if stats is not None and inner_stats.get("producer_leaked"):
-            stats["producer_leaked"] = True
+        inner.close()  # joins the decode thread before the caller closes its stream
+        if ring is not None:
+            ring.close()

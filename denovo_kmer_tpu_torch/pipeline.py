@@ -111,15 +111,24 @@ def _overflow_msg(n: int, capacity: int, what: str = "unique k-mers") -> str:
 
 
 def _report_feed_stats(m: Metrics, stats: dict) -> None:
-    """Feeder telemetry: consumer starvation = the dispatch thread waited on the
-    feed/transfer pipeline (feeder-bound); producer wait = the transfer thread waited on a
-    full queue (device-bound). Emitted as a metrics event; a starved run warns on stderr."""
+    """Feeder telemetry: consumer wait = the dispatch thread's time to get its next placed
+    batch, its wait on the decode thread and the placement (feeder-bound); producer wait =
+    the decode thread waited on a full queue (device-bound). Emitted as a metrics event; a
+    starved run warns on stderr. A feed placed through the staging ring
+    (``io/prefetch.StagingRing``, CUDA) also adds its tallies: counters ``feed_staged``,
+    ``feed_ring_waits``, ``feed_ring_grows`` and seconds ``feed_ring_wait`` and
+    ``feed_place_cpu``."""
     if not stats or not stats.get("items"):
         return
     wall = stats.get("wall_s", 0.0)
     cw = stats.get("consumer_wait_s", 0.0)
     starved = wall > 0.5 and cw > 0.6 * wall
     m.add_seconds("feed_wait", cw)
+    if "feed_staged" in stats:
+        for name in ("feed_staged", "feed_ring_waits", "feed_ring_grows"):
+            m.count(name, stats[name])
+        for name in ("feed_ring_wait", "feed_place_cpu"):
+            m.add_seconds(name, stats[name])
     m.event(
         "feed_pipeline",
         batches=stats["items"],
